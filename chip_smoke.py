@@ -9,16 +9,28 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases, each printing a flushed progress line with elapsed seconds:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build of csrc/*.cu with one nvcc call (cuda_build);
-3. kernel K1 (fused global scan) against its plain version at the slice's
-   shape (B=64, R=256, T=30, P=256) and at a ragged one;
-4. kernel K2 (gridding insert) against its plain version at the slice's
-   sample count, plus the empty and all-dropped cases;
+2. build of csrc/*.cu with one nvcc call (cuda_build), and the count of
+   tensor-core instructions (HGMMA / HMMA) in the global-scan kernel's
+   SASS (cuobjdump), as proof of tensor-core use;
+3. kernel K1 (fused global scan, wgmma) against its plain version at the
+   slice's shape (B=64, R=256, T=30, P=256), a ragged one (37, 200, 7)
+   and one with T over two translation chunks (16, 256, 70): merged
+   outputs against ``scan_plain``, raw per-tile outputs against
+   ``scan_tiles_plain``, the merge kernel against ``merge_tiles``; the
+   wrapper as the round calls it timed in turns with a batched-matmul
+   yardstick, and the kernels' own time on the card from a profiler
+   trace, at the slice shape and at B = 1024;
+4. kernel K2 (gridding insert, channel-minor table, vector atomics)
+   against its plain version at the slice's sample count on random rows,
+   plus the empty and all-dropped cases; kernel and ``index_add_`` timed in
+   turns on the same table;
 5. one global refinement round at full width (160 px, pf 2, C4, 256 x 30
    scan, 125 x 9 local support, 100 insert draws) on 128 synthetic
    particles (cut from the 256 of bench.py; C4-symmetric phantom, noise 0.3
    of the signal std instead of 1.0), through Optimiser.run_iteration,
-   with the kernels' launch counts read around that run only;
+   with the kernels' launch counts read around that run only; then K2
+   held against its plain version and timed in turns with ``index_add_``
+   on the round's own first insert call;
 6. a JSON line of per-kernel numbers, the card line again, and the final
    status line {"ok": true, "device": {...}}.
 
@@ -46,12 +58,13 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 # K1 bars, set from the H100 readings (PERF.md): normalised wR/wT within
-# 7.8e-5 and raw marginals within 3.6e-3 relative (bf16 operands vs the f32
-# plain version). wC is checked raw only: with K = 1 its normalised value
-# is 1 by construction
+# 1.4e-4 and raw marginals and per-tile outputs within 5.3e-3 relative
+# (bf16 operands, Q T and |P|^2 included, vs the f32 plain version). wC is
+# checked raw only: with K = 1 its normalised value is 1 by construction
 K1_TOL = 1e-3        # max |kernel - plain| of normalised wR, wT
 K1_RAW_TOL = 1e-2    # max |kernel - plain| / max |plain| of wC, wR, wT
 K1_ARGMAX_MIN = 0.95  # top-pose agreement (bf16 can flip near-ties)
+K1_MERGE_TOL = 1e-5  # merge kernel vs merge_tiles on the same tiles (f32)
 K2_TOL = 1e-5       # max |kernel - plain| / max |plain|: atomics reorder f32
 # bounds on the global round, set from the first full run on an H100
 # (median top-pose error 0.92 deg, FSC-0.143 shell 15): see PERF.md
@@ -129,16 +142,90 @@ def k1_problem(gen, dev, b, r, t, p, scale=0.05):
     return q.to(c64), e.float(), proj, tra.to(c64), pr, pt
 
 
-def k1_bound_ms(b, r, t, p):
-    n_pose = -(-r // 128) * 128
-    tiles = n_pose // 128
-    flops = 4.0 * b * r * t * p + 2.0 * b * r * p
-    nbytes = (3 * b * p * 2 + 2 * p * n_pose * 2 + 2 * t * p * 2
-              + b * n_pose * 4 + b * t * 4 + n_pose * 4      # inputs
-              + b * n_pose * 4 + 2 * b * tiles * 4 + 2 * b * tiles * t * 4)
+def k1_bound_ms(b, k, r, t, p):
+    """Least time for the scan FUNCTION, whatever implements it: its
+    operations (4 B K R T P for term 1, 2 B K R P for term 2) over the
+    bf16 tensor-core peak, or its bytes (q, e, proj, tra and the priors
+    read once as passed, wR, wT, wC written once) over HBM."""
+    flops = 4.0 * b * k * r * t * p + 2.0 * b * k * r * p
+    nbytes = (b * p * 8 + b * p * 4 + k * r * p * 8 + t * p * 8
+              + b * r * 4 + b * t * 4                          # inputs
+              + b * k * r * 4 + b * k * t * 4 + b * k * 4)     # outputs
     by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
     return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                    else "bytes")
+
+
+def sass_counts(lib_path):
+    """Tensor-core instructions (HGMMA / HMMA) in the global-scan kernel's
+    SASS and the atomic opcodes of the insert kernel, from cuobjdump; None
+    where cuobjdump is absent."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, atomics, fn = {}, set(), ""
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        ins = line.split("*/")[1].strip() if "*/" in line else ""
+        op = ins.split()[0] if ins else ""
+        if op.startswith("@"):
+            op = ins.split()[1]
+        if "global_scan" in fn and op.startswith(("HGMMA", "HMMA")):
+            counts[op.split(".")[0]] = counts.get(op.split(".")[0], 0) + 1
+        if "insert" in fn and op.startswith(("RED", "ATOM")):
+            atomics.add(op)
+    return {"global_scan": counts, "insert_atomics": sorted(atomics)}
+
+
+def device_ms(fn, names, reps=20):
+    """Mean time on the card per call of ``fn`` of the kernels whose names
+    hold one of ``names``, from a torch.profiler trace of ``reps`` calls
+    (CUPTI kernel intervals; host time excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(n in e.name for n in names)]
+    if not kern:
+        raise AssertionError(f"profiler saw no kernel named {names}")
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kern)
+    return busy_us / 1e3 / reps
+
+
+K1_KERNELS = ("global_scan_kernel", "merge_kernel")
+
+
+def k1_tile_errs(q, e, proj, tra, pr, pt):
+    """K1's raw per-tile outputs against ``scan_tiles_plain`` (f32), and
+    its merge kernel against ``merge_tiles`` of those same tiles: max
+    |kernel - plain| / max |plain| each."""
+    from thunder_tpu_torch.ops import likelihood
+
+    tiles, merged = likelihood.scan_tiles_kernel(q, e, proj, tra, pr, pt)
+    ref = likelihood.scan_tiles_plain(likelihood.pack_scan(q, e, proj, tra,
+                                                           pr, pt))
+    rel = lambda a, b: float((a - b).abs().max()
+                             / b.abs().max().clamp_min(1e-30))
+    merge_ref = likelihood.merge_tiles(tiles, proj.shape[0], proj.shape[1])
+    return ({name: rel(tiles[name], ref[name])
+             for name in ("base", "wr", "wc", "wt")},
+            max(rel(merged[name], merge_ref[name])
+                for name in ("wC", "wR", "wT", "baseline")))
 
 
 def check_k1(dev):
@@ -148,10 +235,13 @@ def check_k1(dev):
 
     gen = torch.Generator(device=dev).manual_seed(11)
     rows = []
-    for (b, r, t, p) in ((64, 256, 30, 256), (37, 200, 7, 256)):
+    launches0 = likelihood.LAUNCHES["scan_fused"]
+    for (b, r, t, p) in ((64, 256, 30, 256), (37, 200, 7, 256),
+                         (16, 256, 70, 256)):
         q, e, proj, tra, pr, pt = k1_problem(gen, dev, b, r, t, p)
         ref = likelihood.scan_plain(q, e, proj, tra, pr, pt)
         got = likelihood.scan_fused(q, e, proj, tra, pr, pt)
+        tile_rels, merge_rel = k1_tile_errs(q, e, proj, tra, pr, pt)
         torch.cuda.synchronize()
         errs, rels = {}, {}
         for name in ("wC", "wR", "wT"):
@@ -168,42 +258,114 @@ def check_k1(dev):
         log(f"K1 B={b} R={r} T={t} P={p}: max |norm err| "
             f"wR={errs['wR']:.3e} wT={errs['wT']:.3e}; raw rel wC="
             f"{rels['wC']:.3e} wR={rels['wR']:.3e} wT={rels['wT']:.3e}; "
-            f"argmax agreement {agree:.3f}")
+            f"argmax agreement {agree:.3f}; raw tile outputs rel "
+            + " ".join(f"{k}={v:.3e}" for k, v in tile_rels.items())
+            + f"; merge kernel rel {merge_rel:.3e}")
         if (max(errs.values()) > K1_TOL or max(rels.values()) > K1_RAW_TOL
-                or agree < K1_ARGMAX_MIN):
+                or max(tile_rels.values()) > K1_RAW_TOL
+                or merge_rel > K1_MERGE_TOL or agree < K1_ARGMAX_MIN):
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"{(b, r, t, p)}: normalised {errs}, raw "
-                                 f"{rels}, argmax {agree}")
+                                 f"{rels}, tiles {tile_rels}, merge "
+                                 f"{merge_rel}, argmax {agree}")
         if top_ref[0] != top_got[0]:
             raise AssertionError("K1 misses the planted top pose")
         rows.append(dict(shape=(b, r, t, p), errs=errs, agree=agree,
                          inputs=(q, e, proj, tra, pr, pt)))
-    # timing at the slice shape
+    # timing at the slice shape: the wrapper as the round calls it (checks,
+    # two allocations, one library call: scan + merge) and the batched-
+    # matmul yardstick in turns, the plain version, and the kernels' own
+    # time on the card from a profiler trace
     q, e, proj, tra, pr, pt = rows[0]["inputs"]
     b, r, t, p = rows[0]["shape"]
-    launches0 = likelihood.LAUNCHES["scan_fused"]
-    ms = cuda_ms(lambda: likelihood.scan_fused(q, e, proj, tra, pr, pt))
+    wrapper = lambda: likelihood.scan_fused(q, e, proj, tra, pr, pt)
+    lib = batched_matmul(q, tra, proj)
+    ms_a = cuda_ms(wrapper, reps=50)
+    lib_a = cuda_ms(lib, reps=50)
     plain_ms = cuda_ms(lambda: likelihood.scan_plain(q, e, proj, tra, pr,
                                                      pt))
+    lib_b = cuda_ms(lib, reps=50)
+    ms_b = cuda_ms(wrapper, reps=50)
+    ms, lib_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+    dev_ms = device_ms(wrapper, K1_KERNELS)
+    bound, by = k1_bound_ms(b, 1, r, t, p)
+    log(f"K1 time at slice shape: wrapper {ms_a:.4f} / {ms_b:.4f} ms "
+        f"(first / last in turn), batched matmul {lib_a:.4f} / {lib_b:.4f} "
+        f"ms, plain {plain_ms:.4f} ms; on the card (profiler, scan + "
+        f"merge) {dev_ms:.4f} ms; bound {bound:.6f} ms ({by}), share of "
+        f"the wrapper {bound / ms:.4f}, of the card time {bound / dev_ms:.4f}")
+    # throughput shape: B = 1024 images in one call
+    bt = 1024
+    q2, e2, proj2, tra2, pr2, pt2 = k1_problem(gen, dev, bt, r, t, p)
+    wrapper2 = lambda: likelihood.scan_fused(q2, e2, proj2, tra2, pr2, pt2)
+    ms_big = cuda_ms(wrapper2, reps=20)
+    lib_big = cuda_ms(batched_matmul(q2, tra2, proj2), reps=20)
+    dev_big = device_ms(wrapper2, K1_KERNELS)
+    bound_big, by_big = k1_bound_ms(bt, 1, r, t, p)
+    log(f"K1 time at B={bt} R={r} T={t} P={p}: wrapper {ms_big:.4f} ms, "
+        f"on the card {dev_big:.4f} ms, batched matmul {lib_big:.4f} ms, "
+        f"bound {bound_big:.6f} ms ({by_big}), share of bound "
+        f"{bound_big / ms_big:.4f}, {4.0 * bt * r * t * p / ms_big / 1e9:.1f}"
+        f" TFLOP/s of term 1")
+    likelihood.LAUNCHES["scan_fused"] = launches0  # check/timing launches
+    return dict(max_abs_err=max(max(x["errs"].values()) for x in rows),
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, device_ms=dev_ms, ms_b1024=ms_big,
+                device_ms_b1024=dev_big, library_ms_b1024=lib_big,
+                bound_ms_b1024=bound_big)
+
+
+def batched_matmul(q, tra, proj):
+    """The yardstick: term 1 of every (image, translation, pose) as two
+    batched torch.matmul calls (no term 2, no marginals)."""
+    import torch
+
+    p = q.shape[1]
     pk = proj.reshape(-1, p)
     pk_re, pk_im = pk.real.contiguous(), pk.imag.contiguous()
 
-    def library():  # the translation products as one batched matmul
+    def run():
         qt = q[None] * tra[:, None, :]                  # (T, B, P)
         return (torch.matmul(qt.real, pk_re.T)
                 - torch.matmul(qt.imag, pk_im.T))
 
-    lib_ms = cuda_ms(library)
-    likelihood.LAUNCHES["scan_fused"] = launches0  # timing launches
-    bound, by = k1_bound_ms(b, r, t, p)
-    log(f"K1 time at slice shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, batched matmul {lib_ms:.4f} ms, bound {bound:.6f} ms ({by})")
-    return dict(max_abs_err=max(max(x["errs"].values()) for x in rows),
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by=by)
+    return run
 
 
 # --------------------------------------------------------------------- K2
+
+def k2_bound(idx, r_pad):
+    """What this call's data needs: every sample read once (28 B), and each
+    table row that some sample hits read and written once (2 x 96 B);
+    rows no sample hits need no traffic."""
+    import torch
+
+    keep = (idx >= 0) & (idx < r_pad)
+    hit = int(torch.unique(idx[keep]).numel())
+    n_samples = idx.shape[0]
+    nbytes = n_samples * 28 + 2 * 96 * hit
+    flops = n_samples * (16 + 48)
+    by_b, by_o = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return ((by_b, "bytes") if by_b >= by_o else (by_o, "operations")), hit
+
+
+def time_k2(tab, idx, fr, fi, tv, frac, reps=10):
+    """Kernel and index_add_ in turns on the same channel-minor table:
+    kernel, index_add_, index_add_, kernel; returns the means."""
+    from thunder_tpu_torch.ops import insert
+
+    contrib = insert.corner_contrib(fr, fi, tv, frac)
+    keep = (idx >= 0) & (idx < tab.shape[1])
+    idx_l = idx[keep].long()
+    contrib = contrib[keep]
+    kern = lambda: insert.insert_update(tab, idx, fr, fi, tv, frac)
+    lib = lambda: tab.T.index_add_(0, idx_l, contrib)
+    ka = cuda_ms(kern, reps=reps)
+    la = cuda_ms(lib, reps=reps)
+    lb = cuda_ms(lib, reps=reps)
+    kb = cuda_ms(kern, reps=reps)
+    return (ka + kb) / 2, (la + lb) / 2, (ka, la, lb, kb)
+
 
 def check_k2(dev, n_samples, mc):
     import torch
@@ -218,9 +380,11 @@ def check_k2(dev, n_samples, mc):
     fr, fi, tv = (torch.randn(n_samples, generator=gen, device=dev)
                   for _ in range(3))
     frac = torch.rand(n_samples, 3, generator=gen, device=dev)
-    tab0 = torch.randn(24, r_pad, generator=gen, device=dev)
-    ref = insert.insert_update_plain(tab0.clone(), idx, fr, fi, tv, frac)
-    out = insert.insert_update(tab0.clone(), idx, fr, fi, tv, frac)
+    tab0 = insert.new_table(r_pad, device=dev)
+    tab0.copy_(torch.randn(24, r_pad, generator=gen, device=dev))
+    fresh = lambda: tab0.T.clone().T  # channel-minor copy
+    ref = insert.insert_update_plain(fresh(), idx, fr, fi, tv, frac)
+    out = insert.insert_update(fresh(), idx, fr, fi, tv, frac)
     torch.cuda.synchronize()
     abs_err = float((out - ref).abs().max())
     rel = abs_err / float(ref.abs().max())
@@ -230,36 +394,83 @@ def check_k2(dev, n_samples, mc):
         raise AssertionError(f"K2 disagrees with its plain version: {rel}")
     # empty insert and every sample on the drop row
     z = torch.zeros(0, device=dev)
-    same = insert.insert_update(tab0.clone(), idx[:0], z, z, z,
-                                frac[:0])
+    same = insert.insert_update(fresh(), idx[:0], z, z, z, frac[:0])
     if not torch.equal(same, tab0):
         raise AssertionError("K2 empty insert changed the table")
     drop = torch.full((1000,), mc ** 3, dtype=torch.int32, device=dev)
     ones = torch.ones(1000, device=dev)
-    out_d = insert.insert_update(tab0.clone(), drop, ones, 2 * ones,
+    out_d = insert.insert_update(fresh(), drop, ones, 2 * ones,
                                  3 * ones, torch.zeros(1000, 3, device=dev))
     torch.cuda.synchronize()
     if not torch.equal(out_d[:, :mc ** 3], tab0[:, :mc ** 3]):
         raise AssertionError("K2 all-dropped insert touched voxel rows")
     log("K2 empty and all-dropped cases hold")
+    del ref, out, same, out_d
 
     launches0 = insert.LAUNCHES["insert_update"]
-    tab = tab0.clone()
-    ms = cuda_ms(lambda: insert.insert_update(tab, idx, fr, fi, tv, frac))
+    tab = fresh()
+    ms, lib_ms, turns = time_k2(tab, idx, fr, fi, tv, frac)
     plain_ms = cuda_ms(lambda: insert.insert_update_plain(tab, idx, fr, fi,
                                                           tv, frac))
-    contrib = insert.corner_contrib(fr, fi, tv, frac)
-    idx_l = idx.long()
-    lib_ms = cuda_ms(lambda: tab.T.index_add_(0, idx_l, contrib))
     insert.LAUNCHES["insert_update"] = launches0
-    nbytes = n_samples * 28 + 2 * 24 * r_pad * 4
-    flops = n_samples * (16 + 48)
-    by_b, by_o = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
-    bound, by = (by_b, "bytes") if by_b >= by_o else (by_o, "operations")
-    log(f"K2 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    (bound, by), hit = k2_bound(idx, r_pad)
+    log(f"K2 time at random rows: kernel {ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms (turns kernel/index_add_/index_add_/kernel "
+        + "/".join(f"{x:.4f}" for x in turns) + f"), plain {plain_ms:.4f} "
+        f"ms, bound {bound:.4f} ms ({by}; {hit} of {r_pad} rows hit)")
     return dict(max_abs_err=abs_err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def k2_main_path(dev, call):
+    """K2 on the round's own first insert call (captured arguments): on a
+    fresh table, held at K2_TOL against the f64 sum of its plain version's
+    f32 corner rows (the plain version itself is logged beside it), then
+    timed in turns with index_add_ on a fresh channel-minor table."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    tab, idx, fr, fi, tv, frac = call
+    launches0 = insert.LAUNCHES["insert_update"]
+    r_pad = tab.shape[1]
+    got = insert.insert_update(insert.new_table(r_pad, device=dev),
+                               idx, fr, fi, tv, frac)
+    plain = insert.insert_update_plain(insert.new_table(r_pad, device=dev),
+                                       idx, fr, fi, tv, frac)
+    # the same f32 corner rows summed in f64: the centre row takes ~1e4
+    # large terms, so two f32 atomic orders differ by twice the error of
+    # either; the f64 sum isolates the kernel's own
+    keep = (idx >= 0) & (idx < r_pad)
+    exact = torch.zeros((r_pad, 24), dtype=torch.float64, device=dev)
+    exact.index_add_(0, idx[keep].long(),
+                     insert.corner_contrib(fr, fi, tv, frac)[keep].double())
+    exact = exact.T
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    rel = float((got.double() - exact).abs().max()) / scale
+    rel_plain = float((plain.double() - exact).abs().max()) / scale
+    rel_pair = float((got - plain).abs().max()) / float(plain.abs().max())
+    log(f"K2 on the round's first insert: max |err| / max |exact| "
+        f"{rel:.3e} (kernel), {rel_plain:.3e} (plain version, index_add_ "
+        f"in f32); kernel against plain {rel_pair:.3e}")
+    if not rel < K2_TOL:
+        raise AssertionError(f"K2 disagrees with the exact sum of its plain "
+                             f"version's rows on the round's samples: {rel}")
+    del got, plain, exact
+    work = insert.new_table(r_pad, device=dev)
+    ms, lib_ms, turns = time_k2(work, idx, fr, fi, tv, frac)
+    insert.LAUNCHES["insert_update"] = launches0
+    (bound, by), hit = k2_bound(idx, r_pad)
+    log(f"K2 on the round's first insert ({idx.shape[0]} samples, "
+        f"R_pad {r_pad}, {hit} rows hit): kernel {ms:.4f} ms, "
+        f"index_add_ {lib_ms:.4f} ms (turns "
+        + "/".join(f"{x:.4f}" for x in turns)
+        + f"), bound {bound:.4f} ms ({by}), share {bound / ms:.4f}")
+    return dict(main_path_ms=ms, main_path_library_ms=lib_ms,
+                main_path_bound_ms=bound, main_path_samples=idx.shape[0],
+                main_path_rows_hit=hit, main_path_rel_err=rel,
+                main_path_rel_err_plain=rel_plain)
 
 
 # ------------------------------------------------------------ the round
@@ -332,6 +543,7 @@ def run_round(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True,
     from thunder_tpu_torch.config import Para
     from thunder_tpu_torch.core.optimiser import Optimiser
     from thunder_tpu_torch.ops import insert, likelihood
+    from thunder_tpu_torch.parallel import engine
 
     vol, stack, q_true, cp = synthetic_dataset(dev, n, b, noise=noise,
                                                symmetric=symmetric)
@@ -350,20 +562,35 @@ def run_round(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True,
     opt.init_sigma()
     opt._sync()
     log("optimiser ready; running one global round")
+    # the round's first K2 call, kept (by reference) for k2_main_path
+    calls = []
+
+    def capture(*args):
+        if not calls:
+            calls.append(args)
+        return insert.insert_update(*args)
+
+    engine.insert_update = capture
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     likelihood.LAUNCHES["scan_fused"] = 0
     insert.LAUNCHES["insert_update"] = 0
     t0 = time.perf_counter()
-    rec = opt.run_iteration()
-    opt._sync()
+    try:
+        rec = opt.run_iteration()
+        opt._sync()
+    finally:
+        engine.insert_update = insert.insert_update
     wall = time.perf_counter() - t0
     launches = {"global_scan": likelihood.LAUNCHES["scan_fused"],
                 "insert_update": insert.LAUNCHES["insert_update"]}
     peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
             if dev.type == "cuda" else float("nan"))
+    held = sum(x.numel() * x.element_size() for x in calls[0][1:]) / 2 ** 30
     log(f"round done in {wall:.2f} s; launches {launches}; peak device "
-        f"memory {peak:.2f} GiB")
+        f"memory {peak:.2f} GiB (includes the captured first insert call's "
+        f"samples, {held:.2f} GiB, held past their use; profile_torch.py "
+        f"reads the peak without them)")
     log("stage seconds: " + json.dumps(
         {k: round(v, 4) for k, v in rec["timing"].items()}))
     log(f"n_phase (mean, max) = {rec['n_phase']}, res shell "
@@ -400,13 +627,13 @@ def run_round(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True,
         f"), share under {ROUND_ANG_MAX} deg "
         f"{float(np.mean(ang < ROUND_ANG_MAX)):.3f}")
     if not bounds:
-        return rec, wall, launches, med
+        return rec, wall, launches, med, calls[0]
     if not med < ROUND_ANG_MAX:
         raise AssertionError(f"median pose error {med} >= {ROUND_ANG_MAX}")
     if rec["res_shell"] < ROUND_RES_MIN:
         raise AssertionError(f"resolution shell {rec['res_shell']} < "
                              f"{ROUND_RES_MIN}")
-    return rec, wall, launches, med
+    return rec, wall, launches, med, calls[0]
 
 
 def main(argv):
@@ -431,30 +658,47 @@ def main(argv):
     cuda_build.library()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s ({lib.name}, "
         f"nvcc {cuda_build.build_seconds})")
+    sass = sass_counts(lib)
+    if sass is None:
+        log("SASS of the global-scan kernel: not available (no cuobjdump)")
+    else:
+        log(f"SASS: global-scan tensor-core instructions "
+            f"{sass['global_scan']} (HGMMA = wgmma, HMMA = mma.sync); "
+            f"insert atomics {sass['insert_atomics']}")
     k1 = check_k1(dev)
     # the slice's insert call: 64 images x 100 draws x 2048 ring pixels
     # into the mc = 165 accumulator (r_u 34 -> table band 40)
     k2 = check_k2(dev, 64 * 100 * 2048, 165)
     launches = {"global_scan": None, "insert_update": None}
     if "--kernels" not in argv:
-        _, _, launches, _ = run_round(dev)
+        _, _, launches, _, call = run_round(dev)
+        k2.update(k2_main_path(dev, call))
+        del call
     if "--data-study" in argv:
         for noise, symmetric in ((1.0, False), (1.0, True), (NOISE, False)):
             log(f"data study: noise {noise}, symmetric phantom {symmetric}")
             run_round(dev, noise=noise, symmetric=symmetric, bounds=False)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [
         dict(name="global_scan", route="cuda",
              source="thunder_tpu_torch/csrc/global_scan.cu",
              replaces="thunder_tpu/ops/pallas_likelihood.py:42",
              launches=launches["global_scan"],
-             **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}),
+             **{k: k1[k] for k in keys + (
+                 "device_ms", "ms_b1024", "device_ms_b1024",
+                 "library_ms_b1024", "bound_ms_b1024")},
+             tensor_core_sass=None if sass is None else sass["global_scan"]),
         dict(name="insert_update", route="cuda",
              source="thunder_tpu_torch/csrc/insert.cu",
              replaces="thunder_tpu/ops/pallas_insert.py:59",
              launches=launches["insert_update"],
-             **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}),
+             **{k: k2[k] for k in keys + tuple(
+                 x for x in ("main_path_ms", "main_path_library_ms",
+                             "main_path_bound_ms", "main_path_samples",
+                             "main_path_rows_hit", "main_path_rel_err",
+                             "main_path_rel_err_plain")
+                 if x in k2)}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)  # as nvidia-smi gives it, own line

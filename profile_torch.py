@@ -6,9 +6,11 @@ Runs the round of ``chip_smoke.py`` (160 px, C4, 128 particles) once to
 warm up (kernel build, cuFFT plans, allocator), then again under
 ``torch.profiler`` and prints:
 
+- the warm-up round's peak device memory (no profiler, no capture),
 - the round's wall time and the union of device-kernel intervals over it
   (device busy share; the rest is the GPU waiting on the host),
-- device time and launch count by kernel name (top 15),
+- device time and launch count by kernel name (top 15), and of the
+  port's own kernels (K1's scan and merge, K2's insert),
 - the number of device kernels launched in the round.
 
 With a path argument the Chrome trace of the profiled round is written
@@ -67,10 +69,15 @@ def main(argv):
         torch.cuda.synchronize()
         return opt
 
+    opt = fresh()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    fresh().run_iteration()
+    opt.run_iteration()
     torch.cuda.synchronize()
-    print(f"warm-up round: {time.perf_counter() - t0:.3f} s", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"warm-up round: {time.perf_counter() - t0:.3f} s, peak device "
+          f"memory {peak:.3f} GiB", flush=True)
+    del opt
     opt = fresh()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -88,12 +95,17 @@ def main(argv):
         d[0] += (e.time_range.end - e.time_range.start) / 1e3
         d[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    out = {"card": card, "round_wall_s": wall,
+    # the port's own kernels (K1: scan + merge; K2: insert) in the round
+    ours = {k: {"ms": v[0], "count": v[1]} for k, v in by_name.items()
+            if any(n in k for n in ("global_scan_kernel", "merge_kernel",
+                                    "insert_kernel"))}
+    out = {"card": card, "round_wall_s": wall, "warm_up_peak_gib": peak,
            "device_busy_s": busy, "device_busy_share": busy / wall,
            "kernel_launches": len(kern),
            "stage_s": rec["timing"], "n_phase": rec["n_phase"],
            "top_kernels_ms": [{"name": k[:90], "ms": v[0], "count": v[1]}
-                              for k, v in top]}
+                              for k, v in top],
+           "port_kernels_ms": ours}
     print(json.dumps(out, indent=1), flush=True)
     if argv:
         os.makedirs(os.path.dirname(os.path.abspath(argv[0])), exist_ok=True)

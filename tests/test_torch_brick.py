@@ -83,6 +83,7 @@ def test_fold_lane_matches():
         np.float32)
     assert lane.shape[1] == jpi.rows_pad(mc ** 3 + 1)
     f_r, t_r = jbrick.fold_insert3_lane(jnp.asarray(lane), mc)
-    f_g, t_g = tbrick.fold_insert3_lane(tt(lane), mc)
+    # the port's accumulator is channel-minor: the same (24, R_pad) view
+    f_g, t_g = tbrick.fold_insert3_lane(tt(lane.T.copy()).T, mc)
     np.testing.assert_allclose(nn(f_g), np.asarray(f_r), atol=1e-5)
     np.testing.assert_allclose(nn(t_g), np.asarray(t_r), atol=1e-5)

@@ -64,6 +64,93 @@ def test_plain_scan_matches_jax(b, p, k, r, t, priors):
     assert tlh.LAUNCHES["scan_fused"] == 0  # CPU tensors never launch
 
 
+def _scan_inputs(rng, b, p, k, r, t):
+    """Port-side scan inputs (q, e, proj, tra, prior_r, prior_t) with
+    Dirichlet priors, and the JAX ``global_search_weights`` result."""
+    dat, ctf, sig_rcp, proj, tra, pm = _problem(rng, b, p, k, r, t)
+    pr = rng.dirichlet(np.ones(r), size=b).astype(np.float32)
+    pt = rng.dirichlet(np.ones(t), size=b).astype(np.float32)
+    ref = jlh.global_search_weights(
+        jnp.asarray(dat), jnp.asarray(ctf), jnp.asarray(sig_rcp),
+        jnp.asarray(proj), jnp.asarray(tra), prior_r=jnp.asarray(pr),
+        prior_t=jnp.asarray(pt), pixel_mask=jnp.asarray(pm))
+    q, e = tlh._q_e(tt(dat), tt(ctf), tt(sig_rcp), tt(pm))
+    return (q, e, tt(proj), tt(tra), tt(pr), tt(pt)), ref
+
+
+@pytest.mark.parametrize("b,p,k,r,t", [
+    (6, 96, 2, 33, 7),      # K = 2, ragged R and P, T below one chunk
+    (5, 128, 1, 70, 70),    # T over two 32-row chunks, ragged pose tile
+    (3, 200, 1, 64, 30),    # whole pose tile, the round's T
+    (4, 64, 3, 20, 1)])     # one translation, three classes
+def test_tile_contract_merges_to_scan(b, p, k, r, t):
+    """K1's tile contract: ``merge_tiles`` of ``scan_tiles_plain`` on the
+    pose-padded f32 operands gives ``scan_plain`` and the JAX
+    ``global_search_weights`` to 1e-4 relative."""
+    rng = np.random.default_rng(b * 1000 + r * 10 + t)
+    args, ref = _scan_inputs(rng, b, p, k, r, t)
+    packed = tlh.pack_scan(*args)
+    assert packed["qa"].shape == (3, b, p)
+    assert packed["poses"].shape[0] % tlh.SCAN_NT == 0
+    tiles = tlh.scan_tiles_plain(packed)
+    n_tiles = packed["poses"].shape[0] // tlh.SCAN_NT
+    assert tiles["wt"].shape == (b, n_tiles, t)
+    got = tlh.merge_tiles(tiles, k, r)
+    plain = tlh.scan_plain(*args)
+    np.testing.assert_allclose(nn(got["baseline"]), nn(plain["baseline"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(nn(got["baseline"]),
+                               np.asarray(ref["baseline"]), rtol=1e-5)
+    for name in ("wC", "wR", "wT"):
+        assert rel_err(nn(got[name]), nn(plain[name])) <= 1e-4, name
+        assert rel_err(nn(got[name]), ref[name]) <= 1e-4, name
+    assert tlh.LAUNCHES["scan_fused"] == 0
+
+
+def test_tile_contract_masks_pad_poses():
+    """A pad pose (valid = 0) whose logL would be the largest of its tile
+    changes no tile output."""
+    rng = np.random.default_rng(21)
+    b, p, k, r, t = 4, 64, 1, 40, 7
+    args, _ = _scan_inputs(rng, b, p, k, r, t)
+    packed = tlh.pack_scan(*args)
+    assert float(packed["valid"][r]) == 0.0
+    clean = tlh.scan_tiles_plain(packed)
+    # E = sigRcp ctf^2 <= 0, so a pad row of |P|^2 = -1000 scores
+    # 1000 sum |E|: far above every real pose, for every image
+    packed["poses"][r] = 0.0
+    packed["poses"][r, 2 * packed["qa"].shape[-1]:] = -1000.0
+    unmasked = tlh.scan_tiles_plain(dict(packed, valid=torch.ones_like(
+        packed["valid"])))
+    assert (unmasked["base"][:, 0] > clean["base"][:, 0] + 100.0).all()
+    got = tlh.scan_tiles_plain(packed)
+    for name in ("base", "wr", "wc", "wt"):
+        torch.testing.assert_close(got[name], clean[name], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,k,r,t", [(5, 2, 70, 9), (3, 1, 64, 40)])
+def test_tile_views_follow_kernel_layout(b, k, r, t):
+    """The views that ``scan_tiles_kernel`` returns read the kernel's flat
+    tile buffer in the order csrc/global_scan.cu writes it: base (B, n_t),
+    wr (B, 64 n_t), wc (B, n_t), wt (B, n_t, T), back to back."""
+    n_t, numel = tlh._tiles_numel(b, k, r, t)
+    assert n_t == k * -(-r // tlh.SCAN_NT)
+    buf = torch.arange(numel + 7, dtype=torch.float32)
+    v = tlh._tile_views(buf, b, k, r, t)
+    n = b * n_t
+    offsets = {"base": 0, "wr": n, "wc": n + n * tlh.SCAN_NT,
+               "wt": 2 * n + n * tlh.SCAN_NT}
+    shapes = {"base": (b, n_t), "wr": (b, n_t * tlh.SCAN_NT),
+              "wc": (b, n_t), "wt": (b, n_t, t)}
+    for name, view in v.items():
+        assert tuple(view.shape) == shapes[name], name
+        flat = view.reshape(-1)
+        np.testing.assert_array_equal(
+            nn(flat), np.arange(offsets[name], offsets[name] + flat.numel(),
+                                dtype=np.float32))
+    assert int(v["wt"].reshape(-1)[-1]) == numel - 1
+
+
 def test_plain_scan_matches_pallas_kernel_interpret():
     from thunder_tpu.ops import pallas_likelihood as jpl
 

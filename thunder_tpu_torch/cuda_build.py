@@ -29,7 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: name -> argument types (all return int = cudaError_t)
 SIGNATURES = {
-    "thunder_global_scan": [_P] * 15 + [_I] * 4 + [_P],
+    "thunder_global_scan": [_P] * 11 + [_I] * 5 + [_P],
     "thunder_insert_update": [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong,
                               _P],
 }
@@ -102,6 +102,10 @@ def check(code, what):
 
 
 def stream_ptr(device):
+    """The raw handle of ``device``'s current stream (the call PyTorch's
+    own Triton launcher makes: far cheaper than a Stream object)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())

@@ -138,10 +138,12 @@ def gather_vol3_half(tab, coords):
 
 
 def fold_insert3_lane(tab_lane, mc, hermitian=True):
-    """Fold the lane-major (24, R_pad) brick accumulator (rows beyond mc^3
-    are drop/pad rows) back to voxels and apply the deferred Hermitian
-    mirror. Returns (F (mc, mc, mc) complex64, T (mc, mc, mc) float32)."""
-    bt = tab_lane[:, :mc ** 3].reshape(24, mc, mc, mc)
+    """Fold the (24, R_pad) brick accumulator (rows beyond mc^3 are
+    drop/pad rows) back to voxels and apply the deferred Hermitian mirror.
+    The table is channel-minor (``insert.new_table``): one transposing copy
+    makes each channel contiguous before the 24 per-channel reads.
+    Returns (F (mc, mc, mc) complex64, T (mc, mc, mc) float32)."""
+    bt = tab_lane[:, :mc ** 3].contiguous().reshape(24, mc, mc, mc)
     dev = tab_lane.device
     fr = torch.zeros((mc, mc, mc), dtype=torch.float32, device=dev)
     fi = torch.zeros_like(fr)

@@ -1,12 +1,16 @@
-"""Gridding insert into the lane-major brick accumulator — kernel K2
-(port of ``thunder_tpu.ops.pallas_insert``).
+"""Gridding insert into the brick accumulator — kernel K2 (port of
+``thunder_tpu.ops.pallas_insert``).
 
 The M-step back-projection adds, for every sample (voxel row, F.re, F.im,
 T, fractional z/y/x), its 8 trilinear corner-weighted (re, im, T) values
-into a (24, R_pad) f32 table: channel c of row r lives at [c, r], and
-``brick.fold_insert3_lane`` folds it back to voxels. The TPU kernel sorts
-and bins samples because the TPU has no vector scatter; the Hopper kernel
-(csrc/insert.cu) is one thread per sample with 24 f32 atomic adds.
+into a (24, R_pad) f32 table: channel c of row r is [c, r], and
+``brick.fold_insert3_lane`` folds it back to voxels. The logical shape is
+the JAX package's lane-major one, but the table is stored CHANNEL-minor,
+strides (1, 24): the 24 floats of a row are contiguous (``new_table``).
+That is the only layout ``insert_update`` takes. The TPU kernel sorts and
+bins samples because the TPU has no vector scatter; the Hopper kernel
+(csrc/insert.cu) adds each sample's 96-byte row with six 16-byte atomics,
+one per lane of six neighbouring lanes.
 
 ``insert_update`` is the wrapper: CUDA tensors launch the kernel, CPU
 tensors run ``insert_update_plain`` (the port of
@@ -25,6 +29,19 @@ ROW_ALIGN = 512  # accumulator rows are padded to this multiple
 def rows_pad(n_rows):
     """Accumulator row count padded to ROW_ALIGN (the JAX window grid)."""
     return -(-n_rows // ROW_ALIGN) * ROW_ALIGN
+
+
+def new_table(r_pad, device=None):
+    """A zeroed (24, r_pad) f32 accumulator stored channel-minor: the
+    transpose of a contiguous (r_pad, 24) tensor."""
+    return torch.zeros((r_pad, 24), dtype=torch.float32, device=device).T
+
+
+def is_channel_minor(tab):
+    """Whether ``tab`` is a (24, R) table with strides (1, 24) and a
+    16-byte aligned base, the layout of ``new_table``."""
+    return (tab.ndim == 2 and tab.shape[0] == 24 and tab.stride() == (1, 24)
+            and tab.data_ptr() % 16 == 0)
 
 
 def corner_contrib(fr, fi, tv, frac):
@@ -62,6 +79,10 @@ def _check_insert_inputs(tab_lane, idx, fr, fi, tv, frac):
     if tab_lane.ndim != 2 or tab_lane.shape[0] != 24:
         raise ValueError(f"insert_update: table must be (24, R_pad), got "
                          f"{tuple(tab_lane.shape)}")
+    if not is_channel_minor(tab_lane):
+        raise ValueError(f"insert_update: table must be channel-minor "
+                         f"(new_table: strides (1, 24), 16-byte aligned), "
+                         f"got strides {tab_lane.stride()}")
     if (idx.shape != (n,) or fr.shape != (n,) or fi.shape != (n,)
             or tv.shape != (n,) or tuple(frac.shape) != (n, 3)):
         raise ValueError("insert_update: sample arrays must be (N,) and "
@@ -71,18 +92,16 @@ def _check_insert_inputs(tab_lane, idx, fr, fi, tv, frac):
 def insert_update(tab_lane, idx, fr, fi, tv, frac):
     """K2: add the samples' trilinear corner rows into ``tab_lane``.
 
-    tab_lane: (24, R_pad) f32; idx: (N,) int32 rows; fr/fi/tv: (N,) f32;
-    frac: (N, 3) f32 fractional (z, y, x). Updates in place, returns it.
-    The kernel's atomic adds land in a run-dependent order, so results
-    match the plain version up to f32 reassociation."""
+    tab_lane: (24, R_pad) f32 from ``new_table``; idx: (N,) int32 rows;
+    fr/fi/tv: (N,) f32; frac: (N, 3) f32 fractional (z, y, x). Updates
+    in place, returns it. The kernel's atomic adds land in a run-dependent
+    order, so results match the plain version up to f32 reassociation."""
     _check_insert_inputs(tab_lane, idx, fr, fi, tv, frac)
     if tab_lane.device.type == "cpu":
         return insert_update_plain(tab_lane, idx, fr, fi, tv, frac)
     if tab_lane.device.type != "cuda":
         raise ValueError(f"insert_update: unsupported device "
                          f"{tab_lane.device}")
-    if not tab_lane.is_contiguous():
-        raise ValueError("insert_update: the table must be contiguous")
     from .. import cuda_build
 
     n = idx.shape[0]

@@ -21,7 +21,7 @@ import torch
 from ..dtypes import real_dtype
 from ..geom import quat
 from ..ops import brick, likelihood
-from ..ops.insert import insert_update, rows_pad
+from ..ops.insert import insert_update, new_table, rows_pad
 from ..ops.translate import translation_phase
 from ..core import particle, projector
 
@@ -184,7 +184,7 @@ def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
     """M-step gridding insert (Optimiser::reconstructRef draws mReco
     support points per image, src/Optimiser.cpp:6711+): for each half,
     every image's ``n_draw`` support draws ri/ti (2, S, n_draw) are inserted
-    with kernel K2 into a lane-major brick accumulator, which is then
+    with kernel K2 into a channel-minor brick accumulator, which is then
     folded to voxels with the deferred Hermitian mirror. One class (K = 1);
     symmetrisation is applied afterwards (``symmetrize_halves``).
 
@@ -200,43 +200,52 @@ def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
     s = dat_ori.shape[1]
     fs, ts, offs = [], [], []
     for h in range(2):
-        tab = torch.zeros((24, rows_pad(n_vox + 1)), dtype=torch.float32,
-                          device=dev)
+        tab = new_table(rows_pad(n_vox + 1), device=dev)
         off = torch.zeros((1, 4), dtype=real_dtype, device=dev)
         for s0 in range(0, s, chunk):
             sl = slice(s0, min(s, s0 + chunk))
-            d, c, w = dat_ori[h, sl], ctf[h, sl], w_img[h, sl]
-            r_sup, t_sup = state["r"][h, sl], state["t"][h, sl]
-            q_d = particle._take(r_sup, ri[h, sl].long())      # (B, D, 4)
-            t_d = particle._take(t_sup, ti[h, sl].long())      # (B, D, 2)
-            t_rel = t_d - tra_off[h, sl][:, None, :]
-            rots = quat.rotate3d(q_d)                          # (B, D, 3, 3)
-            t3 = torch.cat([t_rel, torch.zeros_like(t_rel[..., :1])], -1)
-            dirv = -torch.einsum("bnij,bnj->bni", rots, t3)
-            cnt = (w > 0)[:, None].expand(dirv.shape[:2]).to(real_dtype)
-            o_add = torch.cat([dirv * cnt[..., None], cnt[..., None]], -1)
-            off[0] += o_add.sum(dim=(0, 1))
-            coords = projector.slice_coords_3d(rots, col, row, pf=pf)
-            tra = translation_phase(col, row, -t_rel[..., 0], -t_rel[..., 1],
-                                    n)                         # (B, D, P)
-            wv = (w[:, None, None] * pmask).to(real_dtype)
-            fv = d[:, None, :] * tra * c[:, None, :] * wv
-            tv = ((c[:, None, :] ** 2) * wv).expand(fv.shape)
-            base = torch.floor(coords)
-            bi = base.to(torch.int64) + mc // 2
-            idx = (bi[..., 0] * mc + bi[..., 1]) * mc + bi[..., 2]
-            valid = torch.all((bi >= 0) & (bi < mc - 1), dim=-1)
-            idx = torch.where(valid, idx, torch.full_like(idx, n_vox))
-            frac = (coords - base).float()
-            insert_update(tab, idx.reshape(-1).to(torch.int32),
-                          fv.real.reshape(-1).contiguous(),
-                          fv.imag.reshape(-1).contiguous(),
-                          tv.reshape(-1).contiguous(), frac.reshape(-1, 3))
+            off[0] += _insert_chunk(
+                tab, col, row, pmask, dat_ori[h, sl], ctf[h, sl],
+                w_img[h, sl], state["r"][h, sl], state["t"][h, sl],
+                ri[h, sl], ti[h, sl], tra_off[h, sl], pf=pf, n=n, mc=mc)
         f_h, t_h = brick.fold_insert3_lane(tab, mc)
         fs.append(f_h)
         ts.append(t_h)
         offs.append(off)
     return torch.stack(fs), torch.stack(ts), torch.stack(offs)
+
+
+def _insert_chunk(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
+                  t_off, *, pf, n, mc):
+    """Insert one chunk of images' support draws into ``tab`` with K2;
+    returns the chunk's (4,) [sum dir, count] re-centring sums. Its sample
+    temporaries are freed on return, before the fold."""
+    n_vox = mc ** 3
+    q_d = particle._take(r_sup, ri.long())                 # (B, D, 4)
+    t_d = particle._take(t_sup, ti.long())                 # (B, D, 2)
+    t_rel = t_d - t_off[:, None, :]
+    rots = quat.rotate3d(q_d)                              # (B, D, 3, 3)
+    t3 = torch.cat([t_rel, torch.zeros_like(t_rel[..., :1])], -1)
+    dirv = -torch.einsum("bnij,bnj->bni", rots, t3)
+    cnt = (w > 0)[:, None].expand(dirv.shape[:2]).to(real_dtype)
+    o_add = torch.cat([dirv * cnt[..., None], cnt[..., None]], -1)
+    coords = projector.slice_coords_3d(rots, col, row, pf=pf)
+    tra = translation_phase(col, row, -t_rel[..., 0], -t_rel[..., 1],
+                            n)                             # (B, D, P)
+    wv = (w[:, None, None] * pmask).to(real_dtype)
+    fv = d[:, None, :] * tra * c[:, None, :] * wv
+    tv = ((c[:, None, :] ** 2) * wv).expand(fv.shape)
+    base = torch.floor(coords)
+    bi = base.to(torch.int64) + mc // 2
+    idx = (bi[..., 0] * mc + bi[..., 1]) * mc + bi[..., 2]
+    valid = torch.all((bi >= 0) & (bi < mc - 1), dim=-1)
+    idx = torch.where(valid, idx, torch.full_like(idx, n_vox))
+    frac = (coords - base).float()
+    insert_update(tab, idx.reshape(-1).to(torch.int32),
+                  fv.real.reshape(-1).contiguous(),
+                  fv.imag.reshape(-1).contiguous(),
+                  tv.reshape(-1).contiguous(), frac.reshape(-1, 3))
+    return o_add.sum(dim=(0, 1))
 
 
 def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
