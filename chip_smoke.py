@@ -24,20 +24,33 @@ Phases, each printing a flushed progress line with elapsed seconds:
    against its plain version at the slice's sample count on random rows,
    plus the empty and all-dropped cases; kernel and ``index_add_`` timed in
    turns on the same table;
-5. one global refinement round at full width (160 px, pf 2, C4, 256 x 30
-   scan, 125 x 9 local support, 100 insert draws) on 128 synthetic
-   particles (cut from the 256 of bench.py; C4-symmetric phantom, noise 0.3
-   of the signal std instead of 1.0), through Optimiser.run_iteration,
-   with the kernels' launch counts read around that run only; then K2
-   held against its plain version and timed in turns with ``index_add_``
-   on the round's own first insert call;
-6. a JSON line of per-kernel numbers, the card line again, and the final
-   status line {"ok": true, "device": {...}}.
+5. the round sequence bench.py runs, at full width (160 px, pf 2, C4,
+   256 x 30 scan, 125 x 9 local support, 100 insert draws) on bench.py's
+   256 particles (synthetic; C4-symmetric phantom, noise 0.3 of the
+   signal std instead of 1.0), through Optimiser.run_iteration, each round
+   with the kernels' launch counts set to 0 just before it and read just
+   after, and every round held to ROUND_ANG_MAX / ROUND_RES_MIN:
+   a. the global warm-up round (K1 and K2 launched); then K2 held against
+      the exact sum of its rows and timed in turns with ``index_add_`` on
+      the round's own first insert call;
+   b. two local rounds pinned as bench.py pins them (LOCAL, r = 40): K1
+      launched 0 times and K2 at least 4 times in each, norm-correction
+      factors, sigma and offsets sane; between them, K2 on the first local
+      round's whole half table (both chunks, as the fold receives it)
+      against the exact f64 sum of all its calls' rows, and timed in turns
+      with ``index_add_`` on one local-round chunk;
+   c. two further pinned local rounds, timed (wall, median, particles/s:
+      a progress reading, not a benchmark), and a local round's peak
+      device memory;
+6. a JSON line of per-kernel numbers (launches summed over the rounds of
+   phase 5a-b, and per round), the card line again, and the final status
+   line {"ok": true, "device": {...}}.
 
-``--data-study`` adds, after phase 5, the same round on bench.py's own data
-(asymmetric phantom, noise 1.0) and on the two data sets that change one of
-those two settings, and prints their pose error and resolution without
-bounds: it shows what the smoke's easier data changes.
+``--data-study`` adds, after phase 5, the global round on bench.py's own
+data (asymmetric phantom, noise 1.0) and on the two data sets that change
+one of those two settings, and two pinned local rounds on bench.py's own
+data, and prints their pose error and resolution without bounds: it shows
+what the smoke's easier data changes.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX or of the JAX package: the synthetic data are
@@ -66,11 +79,13 @@ K1_RAW_TOL = 1e-2    # max |kernel - plain| / max |plain| of wC, wR, wT
 K1_ARGMAX_MIN = 0.95  # top-pose agreement (bf16 can flip near-ties)
 K1_MERGE_TOL = 1e-5  # merge kernel vs merge_tiles on the same tiles (f32)
 K2_TOL = 1e-5       # max |kernel - plain| / max |plain|: atomics reorder f32
-# bounds on the global round, set from the first full run on an H100
-# (median top-pose error 0.92 deg, FSC-0.143 shell 15): see PERF.md
+# bounds on every round (the global one and each pinned local one), set
+# from the first full global round on an H100 (median top-pose error 0.92
+# deg, FSC-0.143 shell 15): see PERF.md
 ROUND_ANG_MAX = 5.0   # median top-pose error (deg), C4 mates allowed
 ROUND_RES_MIN = 12    # FSC-0.143 shell after the round
-N_PARTICLES = 128
+N_PARTICLES = 256     # bench.py's count: two 64-image chunks per half
+R_LOCAL = 40          # bench.py's pinned band of the local rounds
 # noise std relative to the clean stack's: bench.py uses 1.0, at which one
 # global round at band r = 8 does not pin the poses down; 0.3 makes the
 # pose check below meaningful
@@ -473,6 +488,67 @@ def k2_main_path(dev, call):
                 main_path_rel_err_plain=rel_plain)
 
 
+def exact_table(calls, r_pad, dev, step=1 << 23):
+    """The f64 sum of the f32 corner rows of every call, in slices."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    exact = torch.zeros((r_pad, 24), dtype=torch.float64, device=dev)
+    for _, idx, fr, fi, tv, frac in calls:
+        for a in range(0, idx.shape[0], step):
+            sl = slice(a, a + step)
+            keep = (idx[sl] >= 0) & (idx[sl] < r_pad)
+            rows = insert.corner_contrib(fr[sl], fi[sl], tv[sl], frac[sl])
+            exact.index_add_(0, idx[sl][keep].long(), rows[keep].double())
+    return exact.T
+
+
+def k2_local_table(dev, calls):
+    """K2 on a local round's whole per-half table: the table as the fold
+    received it (every call of the half, both chunks) against the f64 sum
+    of all those calls' f32 corner rows at K2_TOL, the plain version's
+    error beside it; then K2 and index_add_ timed in turns on one chunk's
+    samples, with the bound counted by the rows hit."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    tab = calls[0][0]
+    r_pad = tab.shape[1]
+    exact = exact_table(calls, r_pad, dev)
+    plain = insert.new_table(r_pad, device=dev)
+    for call in calls:
+        insert.insert_update_plain(plain, *call[1:])
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    rel = float((tab.double() - exact).abs().max()) / scale
+    rel_plain = float((plain.double() - exact).abs().max()) / scale
+    n_samples = sum(c[1].shape[0] for c in calls)
+    log(f"K2 on a local round's whole half table ({len(calls)} calls, "
+        f"{n_samples} samples, R_pad {r_pad}): max |err| / max |exact| "
+        f"{rel:.3e} (kernel), {rel_plain:.3e} (plain version, index_add_ in "
+        f"f32)")
+    if not rel < K2_TOL:
+        raise AssertionError(f"K2's accumulated table disagrees with the "
+                             f"exact sum of its rows: {rel}")
+    del exact, plain
+    launches0 = insert.LAUNCHES["insert_update"]
+    _, idx, fr, fi, tv, frac = calls[0]
+    work = insert.new_table(r_pad, device=dev)
+    ms, lib_ms, turns = time_k2(work, idx, fr, fi, tv, frac, reps=5)
+    insert.LAUNCHES["insert_update"] = launches0
+    (bound, by), hit = k2_bound(idx, r_pad)
+    log(f"K2 on a local-round chunk ({idx.shape[0]} samples, {hit} rows "
+        f"hit): kernel {ms:.4f} ms, index_add_ {lib_ms:.4f} ms (turns "
+        + "/".join(f"{x:.4f}" for x in turns)
+        + f"), bound {bound:.4f} ms ({by}), share {bound / ms:.4f}")
+    return dict(local_round_ms=ms, local_round_library_ms=lib_ms,
+                local_round_bound_ms=bound, local_round_samples=idx.shape[0],
+                local_round_rows_hit=hit, local_round_rel_err=rel,
+                local_round_rel_err_plain=rel_plain)
+
+
 # ------------------------------------------------------------ the round
 
 def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True):
@@ -533,44 +609,64 @@ def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True):
     return vol, stack, q, cp
 
 
-def run_round(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True,
-              bounds=True):
-    """One global round on synthetic data; with ``bounds`` its pose error
-    and resolution are held to ROUND_ANG_MAX / ROUND_RES_MIN."""
-    import numpy as np
-    import torch
-
+def bench_para(n=160):
+    """bench.py's Para."""
     from thunder_tpu_torch.config import Para
-    from thunder_tpu_torch.core.optimiser import Optimiser
-    from thunder_tpu_torch.ops import insert, likelihood
-    from thunder_tpu_torch.parallel import engine
 
-    vol, stack, q_true, cp = synthetic_dataset(dev, n, b, noise=noise,
-                                               symmetric=symmetric)
-    log(f"synthetic stack built: {stack.shape}, cut: {b} particles "
-        f"instead of bench.py's 256, noise {noise} x signal std, "
-        f"{'C4-symmetric' if symmetric else 'asymmetric'} phantom")
-    para = Para(
+    return Para(
         mode="3d", k=1, size=n, pixel_size=1.32, mask_radius=75.0,
         trans_s=2.0, init_res=25.0, global_search_res=15.0, sym="C4",
         m_s=1024, m_l_r=125, m_l_t=9, m_l_d=9, m_reco=100,
         c_search=False, l_search=True, pf=2, seed=7, image_batch=64,
         save_ref_each_iter=False, save_thu_each_iter=False)
-    opt = Optimiser(para, device=dev)
-    opt.set_data(stack, cp)
-    opt.init_reference(vol=vol)
-    opt.init_sigma()
-    opt._sync()
-    log("optimiser ready; running one global round")
-    # the round's first K2 call, kept (by reference) for k2_main_path
-    calls = []
 
-    def capture(*args):
-        if not calls:
-            calls.append(args)
-        return insert.insert_update(*args)
 
-    engine.insert_update = capture
+def pin_local(opt, r=R_LOCAL):
+    """bench.py's pin_local: a LOCAL round at band r, ladder not moving."""
+    from thunder_tpu_torch.core import optimiser as om
+
+    opt.ladder.search_type = om.SEARCH_TYPE_LOCAL
+    opt.ladder.r = r
+    opt.ladder.n_no_decrease = 0
+
+
+def pose_error(opt, q_true):
+    """Per-image angle (deg) from the top pose to the nearest C4 mate of
+    the true pose. The scan reduces rotations into the C4 fundamental
+    domain by LEFT multiplication (symmetry_counterpart: conj(g) q), and a
+    C4-symmetric reference projects alike at q and g q."""
+    import numpy as np
+
+    from thunder_tpu_torch.geom.symmetry import Symmetry
+
+    q_est = opt.best_quat
+    mates = np.concatenate([[[1.0, 0, 0, 0]], Symmetry("C4").quat])
+    best = np.zeros(len(q_est))
+    w2, x2, y2, z2 = q_true.T
+    for w1, x1, y1, z1 in mates:
+        gq = np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                       w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                       w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                       w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], 1)
+        best = np.maximum(best, np.abs(np.sum(gq * q_est, 1)))
+    return 2 * np.degrees(np.arccos(np.clip(best, -1, 1)))
+
+
+def drive_round(opt, label, capture=None):
+    """One ``run_iteration`` with the kernels' launch counts set to 0 just
+    before it and read just after, and the device's peak memory over it.
+    ``capture(args)`` sees every K2 call's arguments (by reference)."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert, likelihood
+    from thunder_tpu_torch.parallel import engine
+
+    dev = opt.device
+    if capture is not None:
+        def hook(*args):
+            capture(args)
+            return insert.insert_update(*args)
+        engine.insert_update = hook
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     likelihood.LAUNCHES["scan_fused"] = 0
@@ -586,54 +682,166 @@ def run_round(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True,
                 "insert_update": insert.LAUNCHES["insert_update"]}
     peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
             if dev.type == "cuda" else float("nan"))
-    held = sum(x.numel() * x.element_size() for x in calls[0][1:]) / 2 ** 30
-    log(f"round done in {wall:.2f} s; launches {launches}; peak device "
-        f"memory {peak:.2f} GiB (includes the captured first insert call's "
-        f"samples, {held:.2f} GiB, held past their use; profile_torch.py "
-        f"reads the peak without them)")
-    log("stage seconds: " + json.dumps(
+    log(f"{label} done in {wall:.2f} s; launches {launches}; peak device "
+        f"memory {peak:.3f} GiB")
+    log(f"{label} stage seconds: " + json.dumps(
         {k: round(v, 4) for k, v in rec["timing"].items()}))
-    log(f"n_phase (mean, max) = {rec['n_phase']}, res shell "
-        f"{rec['res_shell']} ({rec['res_a']:.2f} A), ladder r "
-        f"{rec['r']}, search type {rec['search_type']}")
-    for name, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} was not launched in the "
-                                 "round")
+    log(f"{label}: n_phase (mean, max) = {rec['n_phase']}, res shell "
+        f"{rec['res_shell']} ({rec['res_a']:.2f} A), ladder r {rec['r']}, "
+        f"search type {rec['search_type']}")
+    return rec, wall, launches, peak
+
+
+def check_maps(opt, n):
+    import numpy as np
+    import torch
+
     refs = opt.refs
     if tuple(refs.shape) != (2, 1, n, n, n) or not torch.isfinite(refs).all():
         raise AssertionError("non-finite or mis-shaped reference maps")
     if not np.isfinite(opt.fsc).all():
         raise AssertionError("non-finite FSC")
-    q_est = opt.best_quat
-    # the scan reduces rotations into the C4 fundamental domain by LEFT
-    # multiplication (symmetry_counterpart: conj(g) q), and a C4-symmetric
-    # reference projects alike at q and g q: compare with every g q_true
-    from thunder_tpu_torch.geom.symmetry import Symmetry
 
-    mates = np.concatenate([[[1.0, 0, 0, 0]], Symmetry("C4").quat])
-    best = np.zeros(len(q_est))
-    w2, x2, y2, z2 = q_true.T
-    for w1, x1, y1, z1 in mates:
-        gq = np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
-                       w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-                       w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
-                       w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], 1)
-        best = np.maximum(best, np.abs(np.sum(gq * q_est, 1)))
-    ang = 2 * np.degrees(np.arccos(np.clip(best, -1, 1)))
+
+def check_poses(opt, q_true, rec, label, bounds):
+    """Median top-pose error against the truth (C4 mates allowed) under
+    ROUND_ANG_MAX and the FSC-0.143 shell at ROUND_RES_MIN or above."""
+    import numpy as np
+
+    ang = pose_error(opt, q_true)
     med = float(np.median(ang))
-    log(f"pose recovery: median top-pose error {med:.2f} deg "
+    log(f"{label} pose recovery: median top-pose error {med:.2f} deg "
         f"(p25 {np.percentile(ang, 25):.2f}, p75 {np.percentile(ang, 75):.2f}"
         f"), share under {ROUND_ANG_MAX} deg "
         f"{float(np.mean(ang < ROUND_ANG_MAX)):.3f}")
-    if not bounds:
-        return rec, wall, launches, med, calls[0]
-    if not med < ROUND_ANG_MAX:
-        raise AssertionError(f"median pose error {med} >= {ROUND_ANG_MAX}")
-    if rec["res_shell"] < ROUND_RES_MIN:
-        raise AssertionError(f"resolution shell {rec['res_shell']} < "
-                             f"{ROUND_RES_MIN}")
-    return rec, wall, launches, med, calls[0]
+    if bounds:
+        if not med < ROUND_ANG_MAX:
+            raise AssertionError(f"{label}: median pose error {med} >= "
+                                 f"{ROUND_ANG_MAX}")
+        if rec["res_shell"] < ROUND_RES_MIN:
+            raise AssertionError(f"{label}: resolution shell "
+                                 f"{rec['res_shell']} < {ROUND_RES_MIN}")
+    return med
+
+
+def check_local_state(opt, label):
+    """After a local round: norm-correction factors finite with their
+    median (valid slots) within 1e-3 of 1, sigma finite and positive below
+    r, offsets finite."""
+    import numpy as np
+
+    valid = opt.plane_valid > 0
+    fac = opt.norm_fac.cpu().numpy()[valid]
+    sig = opt.sig.cpu().numpy()[:, :opt.ladder.r]
+    offs = opt.offsets.cpu().numpy()
+    med = float(np.median(fac))
+    log(f"{label}: norm factors median {med:.6f} (min {fac.min():.4f}, max "
+        f"{fac.max():.4f}); sigma below r in [{sig.min():.4e}, "
+        f"{sig.max():.4e}]; offsets |max| {np.abs(offs).max():.3f} px")
+    if not np.isfinite(fac).all() or abs(med - 1.0) > 1e-3:
+        raise AssertionError(f"{label}: norm factors non-finite or median "
+                             f"{med} off 1")
+    if not (np.isfinite(sig).all() and (sig > 0).all()):
+        raise AssertionError(f"{label}: sigma non-finite or not positive "
+                             "below r")
+    if not np.isfinite(offs).all():
+        raise AssertionError(f"{label}: non-finite offsets")
+
+
+def make_optimiser(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True):
+    """bench.py's optimiser on synthetic data; returns (opt, true quats)."""
+    from thunder_tpu_torch.core.optimiser import Optimiser
+
+    vol, stack, q_true, cp = synthetic_dataset(dev, n, b, noise=noise,
+                                               symmetric=symmetric)
+    log(f"synthetic stack built: {stack.shape} ({b} particles as in "
+        f"bench.py), noise {noise} x signal std, "
+        f"{'C4-symmetric' if symmetric else 'asymmetric'} phantom")
+    opt = Optimiser(bench_para(n), device=dev)
+    opt.set_data(stack, cp)
+    opt.init_reference(vol=vol)
+    opt.init_sigma()
+    opt._sync()
+    return opt, q_true
+
+
+def run_round(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True,
+              bounds=True):
+    """The global warm-up round on synthetic data; with ``bounds`` its pose
+    error and resolution are held to ROUND_ANG_MAX / ROUND_RES_MIN.
+    Returns (opt, q_true, launches, the round's first K2 call)."""
+    opt, q_true = make_optimiser(dev, n, b, noise, symmetric)
+    log("optimiser ready; running the global round")
+    calls = []
+
+    def first(args):
+        if not calls:
+            calls.append(args)
+
+    rec, _, launches, _ = drive_round(opt, "global round", capture=first)
+    held = sum(x.numel() * x.element_size() for x in calls[0][1:]) / 2 ** 30
+    log(f"(the peak includes the captured first insert call's samples, "
+        f"{held:.2f} GiB, held past their use; profile_torch.py reads the "
+        f"peak without them)")
+    if bounds:
+        for name, c in launches.items():
+            if c <= 0:
+                raise AssertionError(f"kernel {name} was not launched in "
+                                     "the global round")
+    check_maps(opt, n)
+    check_poses(opt, q_true, rec, "global round", bounds)
+    return opt, q_true, launches, calls[0]
+
+
+def run_local_rounds(opt, q_true, bounds=True, label="pinned local round",
+                     on_half0=None):
+    """Two local rounds pinned as bench.py pins them. With ``bounds``: K1
+    launched 0 times and K2 at least 4 times in each (2 halves x 2 chunks
+    at 256 particles), poses and resolution within the global round's
+    bars, and the norm factors, sigma and offsets sane. ``on_half0(calls)``
+    gets the first round's K2 calls of half 0 (its table and samples, held
+    by reference) before the second round runs. Returns (launches per
+    round, peak GiB of the second round)."""
+    half0, peak = [], None
+    per_round = []
+
+    def grab(args):
+        if not half0 or args[0] is half0[0][0]:
+            half0.append(args)
+
+    for i in (1, 2):
+        pin_local(opt)
+        rec, _, launches, peak = drive_round(
+            opt, f"{label} {i}", capture=grab if i == 1 and on_half0 else None)
+        per_round.append(launches)
+        check_maps(opt, opt.n)
+        check_poses(opt, q_true, rec, f"{label} {i}", bounds)
+        if bounds:
+            if launches["global_scan"] != 0 or launches["insert_update"] < 4:
+                raise AssertionError(f"{label} {i}: launches {launches}, "
+                                     "expected global_scan 0 and "
+                                     "insert_update >= 4")
+            check_local_state(opt, f"{label} {i}")
+        if half0:
+            on_half0(half0)
+            half0.clear()
+    return per_round, peak
+
+
+def time_local_rounds(opt, reps=2):
+    """Further pinned local rounds, timed (no checks, no capture)."""
+    import numpy as np
+
+    walls = []
+    for i in range(reps):
+        pin_local(opt)
+        _, wall, _, _ = drive_round(opt, f"timed local round {i + 1}")
+        walls.append(wall)
+    med = float(np.median(walls))
+    log(f"timed local rounds: {[round(w, 3) for w in walls]} s, median "
+        f"{med:.3f} s, {N_PARTICLES / med:.2f} particles/s (a progress "
+        f"reading, not a benchmark)")
+    return walls, med
 
 
 def main(argv):
@@ -666,25 +874,44 @@ def main(argv):
             f"{sass['global_scan']} (HGMMA = wgmma, HMMA = mma.sync); "
             f"insert atomics {sass['insert_atomics']}")
     k1 = check_k1(dev)
-    # the slice's insert call: 64 images x 100 draws x 2048 ring pixels
-    # into the mc = 165 accumulator (r_u 34 -> table band 40)
+    # the global round's insert call: 64 images x 100 draws x 2048 ring
+    # pixels into the mc = 165 accumulator (r_u 34 -> table band 40)
     k2 = check_k2(dev, 64 * 100 * 2048, 165)
     launches = {"global_scan": None, "insert_update": None}
+    per_path = {}
     if "--kernels" not in argv:
-        _, _, launches, _, call = run_round(dev)
+        opt, q_true, per_path["global_round"], call = run_round(dev)
         k2.update(k2_main_path(dev, call))
         del call
+        local, peak = run_local_rounds(
+            opt, q_true, on_half0=lambda c: k2.update(k2_local_table(dev, c)))
+        per_path["local_round_1"], per_path["local_round_2"] = local
+        log(f"peak device memory of a pinned local round (the second, no "
+            f"capture): {peak:.3f} GiB")
+        walls, med = time_local_rounds(opt)
+        k2.update(local_round_walls_s=walls, local_round_median_s=med,
+                  local_round_peak_gib=peak)
+        del opt
+        launches = {name: sum(p[name] for p in per_path.values())
+                    for name in ("global_scan", "insert_update")}
     if "--data-study" in argv:
         for noise, symmetric in ((1.0, False), (1.0, True), (NOISE, False)):
             log(f"data study: noise {noise}, symmetric phantom {symmetric}")
-            run_round(dev, noise=noise, symmetric=symmetric, bounds=False)
+            opt, q_true, _, _ = run_round(dev, noise=noise,
+                                          symmetric=symmetric, bounds=False)
+            if (noise, symmetric) == (1.0, False):  # bench.py's own data
+                run_local_rounds(opt, q_true, bounds=False,
+                                 label="data study: pinned local round")
+            del opt
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    paths = lambda name: {k: v[name] for k, v in per_path.items()}
     kernels = [
         dict(name="global_scan", route="cuda",
              source="thunder_tpu_torch/csrc/global_scan.cu",
              replaces="thunder_tpu/ops/pallas_likelihood.py:42",
              launches=launches["global_scan"],
+             launches_per_path=paths("global_scan"),
              **{k: k1[k] for k in keys + (
                  "device_ms", "ms_b1024", "device_ms_b1024",
                  "library_ms_b1024", "bound_ms_b1024")},
@@ -693,12 +920,10 @@ def main(argv):
              source="thunder_tpu_torch/csrc/insert.cu",
              replaces="thunder_tpu/ops/pallas_insert.py:59",
              launches=launches["insert_update"],
+             launches_per_path=paths("insert_update"),
              **{k: k2[k] for k in keys + tuple(
-                 x for x in ("main_path_ms", "main_path_library_ms",
-                             "main_path_bound_ms", "main_path_samples",
-                             "main_path_rows_hit", "main_path_rel_err",
-                             "main_path_rel_err_plain")
-                 if x in k2)}),
+                 x for x in k2 if x.startswith(("main_path_", "local_round_"))
+             )}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)  # as nvidia-smi gives it, own line

@@ -1,20 +1,28 @@
-"""Where the time of one global round of the port goes on the card.
+"""Where the time of the port's rounds goes on the card.
 
     python3 profile_torch.py [TRACE.json.gz]   # repository root, one GPU
 
-Runs the round of ``chip_smoke.py`` (160 px, C4, 128 particles) once to
-warm up (kernel build, cuFFT plans, allocator), then again under
-``torch.profiler`` and prints:
+Runs ``chip_smoke.py``'s round sequence (160 px, C4, bench.py's 256
+particles): a global round once to warm up (kernel build, cuFFT plans,
+allocator), then on a fresh optimiser a global round under
+``torch.profiler``, a pinned local round (bench.py's ``pin_local``, r = 40)
+to warm up the local band, and one more pinned local round under the
+profiler. For each profiled round it prints:
 
 - the warm-up round's peak device memory (no profiler, no capture),
 - the round's wall time and the union of device-kernel intervals over it
   (device busy share; the rest is the GPU waiting on the host),
 - device time and launch count by kernel name (top 15), and of the
   port's own kernels (K1's scan and merge, K2's insert),
-- the number of device kernels launched in the round.
+- the number of device kernels launched in the round;
 
-With a path argument the Chrome trace of the profiled round is written
-there. Every number is printed with the card's name and power limit.
+and, on one insert chunk of the local round's state, the sample build
+and K2 with each image's DC draws added once (the port's insert) and draw
+by draw (the JAX insert's order).
+
+With a path argument the Chrome traces of the profiled rounds are written
+there (global) and beside it with ``_local`` before the suffix. Every
+number is printed with the card's name and power limit.
 """
 
 import json
@@ -38,47 +46,24 @@ def busy_union_us(intervals):
     return total
 
 
-def main(argv):
+def timed_round(opt):
+    """An unprofiled round: (wall s, peak device GiB)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke as cs
-    from thunder_tpu_torch.config import Para
-    from thunder_tpu_torch.core.optimiser import Optimiser
-
-    if not torch.cuda.is_available():
-        print("profile_torch: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    card = cs.card_line()
-    print(f"card: {card}", flush=True)
-    n = 160
-    vol, stack, _, cp = cs.synthetic_dataset(dev, n, cs.N_PARTICLES,
-                                             noise=cs.NOISE)
-    para = Para(
-        mode="3d", k=1, size=n, pixel_size=1.32, mask_radius=75.0,
-        trans_s=2.0, init_res=25.0, global_search_res=15.0, sym="C4",
-        m_s=1024, m_l_r=125, m_l_t=9, m_l_d=9, m_reco=100,
-        c_search=False, l_search=True, pf=2, seed=7, image_batch=64)
-
-    def fresh():
-        opt = Optimiser(para, device=dev)
-        opt.set_data(stack, cp)
-        opt.init_reference(vol=vol)
-        opt.init_sigma()
-        torch.cuda.synchronize()
-        return opt
-
-    opt = fresh()
-    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.reset_peak_memory_stats(opt.device)
     t0 = time.perf_counter()
     opt.run_iteration()
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    print(f"warm-up round: {time.perf_counter() - t0:.3f} s, peak device "
-          f"memory {peak:.3f} GiB", flush=True)
-    del opt
-    opt = fresh()
+    return (time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(opt.device) / 2 ** 30)
+
+
+def profiled_round(opt, trace=None):
+    """One round under torch.profiler: its wall time, device busy share,
+    launches and device time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -99,17 +84,92 @@ def main(argv):
     ours = {k: {"ms": v[0], "count": v[1]} for k, v in by_name.items()
             if any(n in k for n in ("global_scan_kernel", "merge_kernel",
                                     "insert_kernel"))}
-    out = {"card": card, "round_wall_s": wall, "warm_up_peak_gib": peak,
-           "device_busy_s": busy, "device_busy_share": busy / wall,
-           "kernel_launches": len(kern),
-           "stage_s": rec["timing"], "n_phase": rec["n_phase"],
-           "top_kernels_ms": [{"name": k[:90], "ms": v[0], "count": v[1]}
-                              for k, v in top],
-           "port_kernels_ms": ours}
+    if trace:
+        os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+        prof.export_chrome_trace(trace)
+    return {"round_wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall, "kernel_launches": len(kern),
+            "stage_s": rec["timing"], "n_phase": rec["n_phase"],
+            "top_kernels_ms": [{"name": k[:90], "ms": v[0], "count": v[1]}
+                               for k, v in top],
+            "port_kernels_ms": ours}
+
+
+def dc_merge_cost(opt, reps=5):
+    """What adding each image's DC draws once costs and saves on one
+    insert chunk of the optimiser's current state (half 0, first chunk,
+    the reconstruction's own inputs): the sample build and K2 with the DC
+    merge (``engine.dc_draw_weights``, the port's path) and draw by draw
+    (the JAX insert's order), CUDA-event ms each."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from thunder_tpu_torch.ops import brick, insert, pixels
+    from thunder_tpu_torch.parallel import engine
+
+    para, n, s = opt.para, opt.n, opt._chunk()
+    r_u = opt.ladder.r_u
+    ring = pixels.pixel_ring(n, 0, r_u)
+    col, row, pmask = opt._ring_tensors(ring)
+    mc = brick.crop_size(min(-(-int(np.ceil(r_u)) // 8) * 8, n // 2 - 2),
+                         para.pf)
+    dat, c, _ = opt._plane_ring_data(ring, ori=True, refined_defocus=True)
+    n_draw = min(para.m_reco, para.m_l_r)
+    par = opt.par
+    ri, ti = opt.draws.insert(opt.iteration, (2, opt.s_slots), n_draw,
+                              par["r"].shape[2], par["t"].shape[2])
+    w = opt.scores * opt._t(opt.plane_valid) / n_draw
+    args = (col, row, pmask, dat[0, :s], c[0, :s], w[0, :s], par["r"][0, :s],
+            par["t"][0, :s], ri[0, :s], ti[0, :s], opt.offsets[0, :s])
+    out = {}
+    for name, dw in (("merged", engine.dc_draw_weights(col, row, n_draw)),
+                     ("draw_by_draw", None)):
+        build = lambda: engine.chunk_samples(*args, pf=para.pf, n=n, mc=mc,
+                                             draw_w=dw)
+        samples = build()[:-1]
+        tab = insert.new_table(insert.rows_pad(mc ** 3 + 1),
+                               device=opt.device)
+        out[name] = {
+            "build_ms": cs.cuda_ms(build, reps=reps),
+            "k2_ms": cs.cuda_ms(lambda: insert.insert_update(tab, *samples),
+                                reps=reps),
+            "nonzero_dc_samples": int((samples[1].reshape(s, n_draw, -1)[
+                :, :, 0] != 0).sum())}
+        del samples, tab
+    insert.LAUNCHES["insert_update"] = 0
+    return out
+
+
+def main(argv):
+    import torch
+
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    opt, _ = cs.make_optimiser(dev)
+    wall, peak = timed_round(opt)
+    print(f"warm-up global round: {wall:.3f} s, peak device memory "
+          f"{peak:.3f} GiB", flush=True)
+    del opt
+    opt, _ = cs.make_optimiser(dev)
+    trace = argv[0] if argv else None
+    out = {"card": card, "warm_up_global_peak_gib": peak,
+           "global": profiled_round(opt, trace)}
+    cs.pin_local(opt)
+    wall, peak = timed_round(opt)
+    print(f"warm-up pinned local round: {wall:.3f} s, peak device memory "
+          f"{peak:.3f} GiB", flush=True)
+    out["warm_up_local_peak_gib"] = peak
+    cs.pin_local(opt)
+    out["local"] = profiled_round(
+        opt, trace and trace.replace(".json", "_local.json"))
+    out["dc_merge_on_a_local_chunk"] = dc_merge_cost(opt)
     print(json.dumps(out, indent=1), flush=True)
-    if argv:
-        os.makedirs(os.path.dirname(os.path.abspath(argv[0])), exist_ok=True)
-        prof.export_chrome_trace(argv[0])
     print(f"card: {card}", flush=True)
     return 0
 

@@ -13,9 +13,12 @@ bench.py's (1.0).
 
 Run as a script for the same comparison at another size, e.g. the 96 px
 study quoted in PERF.md (a fourth argument ``asym`` keeps bench.py's
-asymmetric phantom):
+asymmetric phantom; a fifth, L, adds L local rounds pinned as bench.py
+pins them, r = 40 scaled to the box, and prints each round's shells and
+pose errors):
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_c4_round.py 96 64 1.0
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_c4_round.py 96 128 0.3 sym 4
 """
 
 import dataclasses
@@ -30,7 +33,7 @@ from thunder_tpu.config import Para as JPara
 from thunder_tpu.core.optimiser import Optimiser as JOptimiser
 from thunder_tpu.parallel.mesh import make_mesh
 from thunder_tpu_torch.config import Para
-from thunder_tpu_torch.core.optimiser import Optimiser
+from thunder_tpu_torch.core.optimiser import SEARCH_TYPE_LOCAL, Optimiser
 from thunder_tpu_torch.geom.symmetry import Symmetry
 
 from test_torch_support import JaxDraws
@@ -62,9 +65,11 @@ def _pose_err(q_est, q_true):
     return 2 * np.degrees(np.arccos(np.clip(best, -1, 1)))
 
 
-def c4_rounds(n, b, noise, symmetric=True):
-    """One global C4 round of each package on the same data; the port
-    replays the JAX draws. Returns the readings of both."""
+def c4_rounds(n, b, noise, symmetric=True, n_local=0):
+    """One global C4 round of each package on the same data, then
+    ``n_local`` pinned local rounds; the port replays the JAX draws.
+    Returns the readings of both after the last round, and the resolution
+    shells and median pose errors of every round."""
     vol, stack, q_true, cp = chip_smoke.synthetic_dataset(
         torch.device("cpu"), n, b, noise=noise, symmetric=symmetric)
     para = _para(n)
@@ -73,13 +78,22 @@ def c4_rounds(n, b, noise, symmetric=True):
     jo.set_data(stack, cp)
     jo.init_reference(vol=vol)
     jo.init_sigma()
-    jrec = jo.run_iteration()
     op = Optimiser(para, device="cpu",
                    draws=JaxDraws(para.seed, jo.plane_index))
     op.set_data(stack, cp)
     op.init_reference(vol=vol)
     op.init_sigma()
-    rec = op.run_iteration()
+    rounds = []
+    for i in range(1 + n_local):
+        for o in (jo, op):
+            if i:  # bench.py's pin_local
+                o.ladder.search_type = SEARCH_TYPE_LOCAL
+                o.ladder.r = int(round(40 * n / 160))
+                o.ladder.n_no_decrease = 0
+        jrec, rec = jo.run_iteration(), op.run_iteration()
+        rounds.append({pkg: (r["res_shell"], round(float(np.median(
+            _pose_err(np.asarray(o.best_quat), q_true))), 3))
+            for pkg, r, o in (("jax", jrec, jo), ("port", rec, op))})
     q_j, q_t = np.asarray(jo.best_quat), np.asarray(op.best_quat)
     err_j, err_t = _pose_err(q_j, q_true), _pose_err(q_t, q_true)
     follow = 2 * np.degrees(np.arccos(np.clip(
@@ -91,7 +105,7 @@ def c4_rounds(n, b, noise, symmetric=True):
         under5_jax=float(np.mean(err_j < 5)),
         under5_port=float(np.mean(err_t < 5)),
         follow=float(np.mean(follow < 1.0)),
-        finite=bool(torch.isfinite(op.refs).all()))
+        finite=bool(torch.isfinite(op.refs).all()), rounds=rounds)
 
 
 @pytest.mark.parametrize("noise", [0.3, 1.0])
@@ -110,6 +124,7 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     n_box, n_img, sd = int(sys.argv[1]), int(sys.argv[2]), float(sys.argv[3])
-    sym = sys.argv[4:] != ["asym"]
+    sym = sys.argv[4:5] != ["asym"]
+    n_loc = int(sys.argv[5]) if len(sys.argv) > 5 else 0
     print(dict(box=n_box, particles=n_img, noise=sd, symmetric=sym,
-               **c4_rounds(n_box, n_img, sd, sym)))
+               **c4_rounds(n_box, n_img, sd, sym, n_loc)))

@@ -8,6 +8,7 @@ The port's table is channel-minor (strides (1, 24)); the tests build it
 from the JAX package's lane-major NumPy table as ``tt(tab0.T.copy()).T``
 and compare its (24, R_pad) view with the JAX result."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,3 +146,61 @@ def test_kernel_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.build()
+
+
+def _dc_chunk(rng, b, n_draw, col, row):
+    """One chunk of insert inputs shaped like a round's: images whose DC
+    pixel is large (a normalised particle image sums to a large DC value),
+    random support poses and translations."""
+    p = col.shape[0]
+    d = (rng.normal(size=(b, p)) + 1j * rng.normal(size=(b, p))).astype(
+        np.complex64)
+    d[:, (col == 0) & (row == 0)] = 40 + 5 * rng.normal(size=(b, 1))
+    q = rng.normal(size=(b, 6, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return dict(
+        d=tt(d), c=tt(rng.uniform(0.2, 1.0, (b, p)).astype(np.float32)),
+        w=tt(np.full(b, 1.0 / n_draw, np.float32)), r_sup=tt(q),
+        t_sup=tt(rng.normal(0, 2.0, (b, 5, 2)).astype(np.float32)),
+        ri=tt(rng.integers(0, 6, (b, n_draw)).astype(np.int32)),
+        ti=tt(rng.integers(0, 5, (b, n_draw)).astype(np.int32)),
+        t_off=tt(rng.normal(0, 0.5, (b, 2)).astype(np.float32)))
+
+
+def test_insert_path_adds_dc_draws_once():
+    """The engine's insert path (each image's DC draws added once, then
+    K2's plain version) on a table that takes 25,600 identical DC values
+    (4 chunks of 64 images x 100 draws) and the ring's other pixels at
+    random poses, against JAX's ``reference_insert_update`` evaluated in
+    float64 on every draw's sample: within 1e-5 relative. The same samples
+    inserted draw by draw in f32 are not, so the check sees the fault it
+    guards against."""
+    from thunder_tpu_torch.ops import brick, pixels
+    from thunder_tpu_torch.parallel import engine
+
+    rng = np.random.default_rng(21)
+    ring = pixels.pixel_ring(32, 0, 8)
+    sel = slice(0, ring.n_real)  # the real pixels; DC is the first
+    col, row = tt(ring.col[sel]).long(), tt(ring.row[sel]).long()
+    pmask = tt(ring.mask[sel])
+    mc = brick.crop_size(8, 2)
+    r_pad = tins.rows_pad(mc ** 3 + 1)
+    kw = dict(pf=2, n=32, mc=mc)
+    tab = tins.new_table(r_pad)
+    draw_by_draw = tins.new_table(r_pad)
+    with jax.enable_x64(True):
+        exact = jnp.zeros((24, r_pad), jnp.float64)
+        for _ in range(4):
+            ch = _dc_chunk(rng, 64, 100, ring.col[sel], ring.row[sel])
+            args = (col, row, pmask, ch["d"], ch["c"], ch["w"], ch["r_sup"],
+                    ch["t_sup"], ch["ri"], ch["ti"], ch["t_off"])
+            engine._insert_chunk(tab, *args, **kw)
+            *samples, _ = engine.chunk_samples(*args, **kw)
+            tins.insert_update(draw_by_draw, *samples)
+            f64 = lambda x: jnp.asarray(nn(x), jnp.float64
+                                        if x.is_floating_point() else None)
+            exact = jpi.reference_insert_update(exact, *map(f64, samples))
+        exact = np.asarray(exact)
+    assert np.argmax(np.abs(exact).max(axis=0)) == mc ** 3 // 2  # the DC row
+    assert rel_err(nn(tab), exact) < 1e-5
+    assert rel_err(nn(draw_by_draw), exact) > 1e-5

@@ -10,6 +10,7 @@ and tests of the helpers themselves.
 """
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ def rel_err(a, b):
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
 
 
+@partial(jax.jit, static_argnums=(1, 2))
 def per_image_draws(keys, n_r, n_t):
     """The draws of one particle-filter phase from (N, 2) phase keys, as
     ``engine.local_search`` consumes them (split into 7 sub-keys)."""
@@ -55,6 +57,7 @@ def per_image_draws(keys, n_r, n_t):
     }
 
 
+@partial(jax.jit, static_argnums=(1, 2, 3))
 def insert_draws(keys, n_draw, n_r, n_t):
     """Support indices of the insert draws from (N, 2) per-image keys."""
     k1 = jax.vmap(lambda k: jax.random.fold_in(k, 101))(keys)
@@ -64,6 +67,7 @@ def insert_draws(keys, n_draw, n_r, n_t):
     return ri, ti
 
 
+@partial(jax.jit, static_argnums=(1,))
 def seed_draws(keys, k_cls):
     """Filter-seeding draws (Gumbel, u0_r, u0_t) from (N, 2) keys."""
     ky3 = jax.vmap(lambda k: jax.random.split(k, 3))(keys)
@@ -72,6 +76,12 @@ def seed_draws(keys, k_cls):
     u_r = jax.vmap(lambda k: jax.random.uniform(k, (), f32))(ky3[:, 1])
     u_t = jax.vmap(lambda k: jax.random.uniform(k, (), f32))(ky3[:, 2])
     return g, u_r, u_t
+
+
+@jax.jit
+def _phase_keys(keys, phase):
+    return jax.vmap(jax.random.fold_in)(
+        keys, jnp.full((keys.shape[0],), phase, jnp.uint32))
 
 
 class JaxDraws:
@@ -91,6 +101,13 @@ class JaxDraws:
     def _plane(self, x, shape):
         return tt(x).reshape(tuple(shape) + tuple(np.shape(x)[1:]))
 
+    def scale_quats(self, shape):
+        # correct_scale(init=True) splits the optimiser key (quat.random_quat
+        # of 2 S normals), which moves every later round's keys
+        self.key, sub = jax.random.split(self.key)
+        n = int(np.prod(shape))
+        return tt(jax.random.normal(sub, (n, 4))).reshape(tuple(shape) + (4,))
+
     def scan_grid(self, n_r, n_t):
         self.key, kr, kt = jax.random.split(self.key, 3)
         return (tt(jax.random.normal(kr, (n_r, 4))),
@@ -105,8 +122,7 @@ class JaxDraws:
         keys = self._keys(iteration, 2)
 
         def draw(phase):
-            kph = jax.vmap(jax.random.fold_in)(
-                keys, jnp.full((keys.shape[0],), phase, jnp.uint32))
+            kph = _phase_keys(keys, phase)
             return {k: self._plane(v, shape)
                     for k, v in per_image_draws(kph, n_r, n_t).items()}
         return draw
@@ -132,9 +148,14 @@ def jax_state(opt):
            "plane_valid": np.asarray(opt.plane_valid),
            "groups_plane": np.asarray(opt.groups_plane),
            "offsets": np.asarray(opt.offsets),
-           "scores": np.asarray(opt.scores), "iteration": opt.iteration}
-    if hasattr(opt, "fsc"):
-        out["fsc"] = np.asarray(opt.fsc)
+           "scores": np.asarray(opt.scores), "iteration": opt.iteration,
+           "imgs_ft": np.asarray(opt.imgs_ft),
+           "imgs_ft_ori": np.asarray(opt.imgs_ft_ori),
+           "scale": np.asarray(opt.scale)}
+    for key, attr in (("fsc", "fsc"), ("top_r_prev", "_top_r_prev"),
+                      ("insert_offsets", "insert_offsets")):
+        if getattr(opt, attr, None) is not None:
+            out[key] = np.asarray(getattr(opt, attr))
     return out
 
 

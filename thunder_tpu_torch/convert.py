@@ -9,7 +9,11 @@ neither package's optimiser internals beyond the port's own:
 - ``ladder``: the LadderState fields as a dict,
 - ``plane_index``/``plane_valid``/``groups_plane`` (2, S) layout,
 - ``offsets`` (2, S, 2), ``scores`` (2, S), ``iteration`` and optionally
-  ``fsc`` (K, n//2).
+  ``fsc`` (K, n//2),
+- optionally the state a local round changes: ``imgs_ft`` and
+  ``imgs_ft_ori`` (2, S, n, n) complex64 stacks, ``scale`` (G,) group
+  scales, ``top_r_prev`` (N, 4) the previous round's top rotations in image
+  order (the rotation-change statistics) and ``insert_offsets`` (2, K, 3).
 
 A JAX optimiser ``o`` exports it as
 ``{"refs": np.asarray(o.refs), "sig": np.asarray(o.sig), "par": {k:
@@ -55,6 +59,15 @@ def load_state(opt, state):
     opt.iteration = int(state.get("iteration", opt.iteration))
     if state.get("fsc") is not None:
         opt.fsc = np.array(state["fsc"])
+    for name in ("imgs_ft", "imgs_ft_ori"):
+        if name in state:
+            setattr(opt, name, t(state[name], torch.complex64))
+    if "scale" in state:
+        opt.scale = np.array(state["scale"], np.float32)
+    if state.get("top_r_prev") is not None:
+        opt._top_r_prev = np.array(state["top_r_prev"])
+    if state.get("insert_offsets") is not None:
+        opt.insert_offsets = np.array(state["insert_offsets"], np.float32)
     opt._brick_cache = None
     return opt
 
@@ -67,9 +80,12 @@ def state_dict(opt):
            "par": {k: n(v) for k, v in opt.par.items()},
            "ladder": dataclasses.asdict(opt.ladder),
            "offsets": n(opt.offsets), "scores": n(opt.scores),
-           "iteration": opt.iteration}
+           "iteration": opt.iteration, "imgs_ft": n(opt.imgs_ft),
+           "imgs_ft_ori": n(opt.imgs_ft_ori), "scale": n(opt.scale)}
     for name in _PLANE:
         out[name] = np.array(getattr(opt, name))
-    if getattr(opt, "fsc", None) is not None:
-        out["fsc"] = np.array(opt.fsc)
+    for key, attr in (("fsc", "fsc"), ("top_r_prev", "_top_r_prev"),
+                      ("insert_offsets", "insert_offsets")):
+        if getattr(opt, attr, None) is not None:
+            out[key] = np.array(getattr(opt, attr))
     return out

@@ -30,6 +30,12 @@ class Draws:
         return torch.randint(0, high, shape, generator=self.gen,
                              device=self.device)
 
+    def scale_quats(self, shape):
+        """Normals (2, S, 4) of the random rotations that the init-time
+        intensity-scale re-balance projects at
+        (``Optimiser.correct_scale(init=True)``)."""
+        return self._randn(*shape, 4)
+
     def scan_grid(self, n_r, n_t):
         """Normals for the scan rotations (n_r, 4) and translations
         (n_t, 2)."""

@@ -1,23 +1,30 @@
-"""The refinement loop, global-search round (port of
+"""The refinement loop, global and local-search rounds (port of
 ``thunder_tpu.core.optimiser``; Optimiser::run src/Optimiser.cpp:3561-4075).
 
 Every per-image quantity lives as a (2, S, ...) tensor — plane 0 =
 hemisphere A, plane 1 = B, S slots per plane (invalid slots carry
-``plane_valid`` 0) — on one device. One global round of ``run_iteration``:
+``plane_valid`` 0) — on one device. One round of ``run_iteration``:
 
-- E-step: ``global_scan`` (engine.scan_init with kernel K1) and
-  ``local_search`` (the particle-filter phase loop),
-- M-step: ``_residual_stats`` and ``maximization_sigma``,
+- E-step: ``global_scan`` (engine.scan_init with kernel K1; global rounds
+  only) and ``local_search`` (the particle-filter phase loop),
+- M-step: ``_residual_stats``, then on local rounds ``norm_correction``
+  and ``engine.sigma_rescaled``, and ``maximization_sigma``; the group
+  intensity-scale correction (``correct_scale``) on later global rounds,
 - ``reconstruct``: engine.insert_fold_reduce (kernel K2), grid-exact
   symmetrisation, per-half Wiener/C-balance, golden-standard FSC with the
   random-phase core correction, hemisphere averaging,
-- solvent flattening, the frequency ladder and the search-type switch.
+- on local rounds ``re_centre_img`` and ``re_mask_img``; reference
+  auto-recentring, solvent flattening (the spherical mask), the frequency
+  ladder and the search-type switch.
+
+``run`` does the init-time scale re-balance against a given model and
+then rounds until ``iter_max`` or STOP.
 
 Not ported yet, and raising ``NotImplementedError`` where a run would
-reach them: 2D mode, K > 1, the MKB insert, CTF search, the local-search
-round (norm correction, sigma_rescaled, re-centring and re-masking),
-group scale correction, reference auto-recentring, provided masks, the
-final round and file output.
+reach them: 2D mode, K > 1, the MKB insert, CTF search, provided mask
+volumes (``solvent_flatten`` uses the spherical mask, as the JAX package
+does when no mask was set), the final round (``run(finalise=True)``) and
+file output.
 """
 
 import dataclasses
@@ -37,7 +44,7 @@ from ..ops import fft as fft_ops
 from ..ops import likelihood, pixels, spectrum
 from ..ops.filters import low_pass_filter
 from ..ops.mask import soft_mask_shape
-from ..ops.translate import translation_phase
+from ..ops.translate import translate_ft, translate_ft_3d, translation_phase
 from ..parallel import engine
 from . import particle, projector, reconstructor, sampling
 from .draws import Draws
@@ -308,6 +315,9 @@ class Optimiser:
         """Provided volume (or a soft sphere), low-passed to the initial
         resolution, replicated to both halves: refs (2, K, n, n, n)."""
         n = self.n
+        # the reference re-balances the intensity scale at init only when
+        # a model was given (src/Optimiser.cpp:531-539)
+        self._init_model_given = vol is not None
         if vol is None:
             vol = soft_mask_shape((n, n, n), n / 8, n / 8, device=self.device)
         vol = (vol.to(self.device, real_dtype) if torch.is_tensor(vol)
@@ -334,6 +344,23 @@ class Optimiser:
         self.sig = self._t(np.maximum(sig / 2, 1e-10).astype(np.float32))
 
     # ----------------------------------------------------------- device prep
+
+    def _check_nan(self, stage, arrays):
+        """Per-stage finite checks under ``para.debug_nan`` (the
+        reference's CHECK_NAN macros, include/Config.h). Costs one host
+        sync per array; nothing when the flag is off."""
+        if not self.para.debug_nan:
+            return
+        for name, v in arrays.items():
+            a = torch.as_tensor(v)
+            if a.is_complex():
+                a = a.abs()
+            if not bool(torch.isfinite(a).all()):
+                self.log.error("NaN/Inf in %s after %s (round %d)",
+                               name, stage, self.iteration)
+                raise FloatingPointError(
+                    f"non-finite values in '{name}' after {stage} "
+                    f"(round {self.iteration})")
 
     def _ring(self):
         return pixels.pixel_ring(self.n, self.r_low, self.ladder.r)
@@ -460,10 +487,18 @@ class Optimiser:
         f64 = lambda x: x.cpu().numpy().astype(np.float64)
         return (f64(sig), f64(cnt), f64(xa), f64(aa), norms, shell_n, oris)
 
-    def maximization_sigma(self, stats=None):
+    def maximization_sigma(self, stats=None, sig_override=None):
         """allReduceSigma (src/Optimiser.cpp:6397-6710): sig(group, shell)
-        = mean power of the residual at the rank-1 pose / 2 below r."""
-        sig_sums, cnt, _, _, _, shell_n, _ = stats or self._residual_stats()
+        = mean power of the residual at the rank-1 pose / 2 below r.
+
+        sig_override: (sig_sums, cnt) replacing the stats pass's group
+        sums (engine.sigma_rescaled after norm correction)."""
+        if sig_override is not None:
+            sig_sums, cnt = (x.cpu().numpy() for x in sig_override)
+            shell_n = (stats or self._residual_stats())[5]
+        else:
+            sig_sums, cnt, _, _, _, shell_n, _ = (
+                stats or self._residual_stats())
         sig = (sig_sums / np.maximum(shell_n, 1.0)[None, :]
                / np.maximum(cnt, 1.0)[:, None] / 2)
         r = self.ladder.r
@@ -472,11 +507,143 @@ class Optimiser:
         new_sig[:, r:] = new_sig[:, r - 1:r]
         self.sig = self._t(new_sig.astype(np.float32))
 
+    # ------------------------------------------- scale and norm corrections
+
+    def _r_s(self):
+        """Scale-correction band (Optimiser::refreshScale,
+        src/Optimiser.cpp:5749-5766): the FSC crossing at thresSclCorFSC
+        after the first round, the sclCorRes band before, clamped to r."""
+        para = self.para
+        fsc = getattr(self, "fsc", None)
+        if self.iteration > 0 and fsc is not None:
+            r_s = spectrum.res_p(torch.as_tensor(fsc[0]),
+                                 para.thres_scl_cor_fsc, r_low=1)
+        else:
+            r_s = max(1, int(round(self.n * para.pixel_size
+                                   / para.scl_cor_res)))
+        return min(r_s, self.ladder.r)
+
+    def refresh_scale(self, group=True, stats=None):
+        """Per-group intensity scale from a data-vs-projection fit
+        (Optimiser::refreshScale src/Optimiser.cpp:5749-6063): scale_g =
+        sum XA / sum AA over shells [rL, rS), clamped to [median / 5,
+        median * 5]. Host NumPy on the stats pass's group sums."""
+        _, _, xa_sh, aa_sh, _, _, _ = stats or self._residual_stats()
+        lo, hi = self.r_low, max(self._r_s(), self.r_low + 1)
+        xa = xa_sh[:, lo:hi].sum(axis=1)
+        aa = aa_sh[:, lo:hi].sum(axis=1)
+        if not group:
+            xa[:] = xa.sum()
+            aa[:] = aa.sum()
+        scale = np.abs(xa / np.maximum(aa, 1e-30))
+        med = np.median(scale)
+        return np.clip(scale, med / 5, med * 5).astype(np.float32)
+
+    def correct_scale(self, init=False, group=True):
+        """Apply the refreshed scale (Optimiser::correctScale,
+        src/Optimiser.cpp:5103-5144). At init, one global scale fitted at
+        RANDOM projections (refreshScale coord=false, :5791-5822; the
+        filter's initial poses are all identity) multiplies the
+        references; afterwards the image stacks are divided by their group
+        scale and sigma by its square."""
+        if init:
+            s2 = self.s_slots
+            rand_q = quat.normalize(self.draws.scale_quats((2, s2)))
+            saved = {k: self.par[k] for k in ("topR", "topT")}
+            self.par = {**self.par, "topR": rand_q,
+                        "topT": torch.zeros((2, s2, 2), dtype=real_dtype,
+                                            device=self.device)}
+            stats = self._residual_stats()
+            self.par = {**self.par, **saved}
+            scale = self.refresh_scale(group=False, stats=stats)
+            s = float(scale[self.group_ids[0]])
+            self.refs = self.refs * s
+            self.log.info("init scale correction: refs *= %.4f", s)
+        else:
+            scale = self.refresh_scale(group=group)
+            s_img = self._t(scale)[self._t(self.groups_plane).long()][
+                ..., None, None]
+            self.imgs_ft = self.imgs_ft / s_img
+            self.imgs_ft_ori = self.imgs_ft_ori / s_img
+            self.sig = self.sig / self._t(scale[:, None] ** 2)
+        self.scale = scale
+
+    def norm_correction(self, stats=None):
+        """Optimiser::normCorrection (src/Optimiser.cpp:6201-6394): per-
+        image residual power over [rL, rNorm) on the masked stack at the
+        rank-1 pose; both stacks are rescaled by sqrt(median / norm_l).
+        Returns the (2, S) factors (1 on invalid slots) for
+        engine.sigma_rescaled."""
+        _, _, _, _, norms, _, _ = stats or self._residual_stats()
+        fsc = getattr(self, "fsc", None)
+        r_norm = self.ladder.r if fsc is None else min(
+            self.ladder.r,
+            spectrum.res_p(torch.as_tensor(fsc[0]), 0.75, r_low=1))
+        hi = max(r_norm, self.r_low + 1)
+        norm = torch.sum(norms[..., self.r_low:hi], dim=-1)
+        valid = self._t(self.plane_valid) > 0
+        # the median of the valid slots, the mean of the two middle values
+        # for an even count as in NumPy (torch.nanmedian takes the lower)
+        m = torch.nanquantile(torch.where(valid, norm, float("nan")), 0.5)
+        fac = torch.sqrt(m / torch.clamp(norm, min=1e-30))
+        fac = torch.where(valid, fac, torch.ones_like(fac))
+        self.imgs_ft = self.imgs_ft * fac[..., None, None]
+        self.imgs_ft_ori = self.imgs_ft_ori * fac[..., None, None]
+        return fac
+
+    # ------------------------------------------------ re-centre and re-mask
+
+    def _zero_mask_2d(self):
+        n = self.n
+        return soft_mask_shape((n, n), self.para.mask_radius_px,
+                               EDGE_WIDTH_RL, device=self.device)
+
+    def re_centre_img(self):
+        """Optimiser::reCentreImg (src/Optimiser.cpp:6065-6093): fold each
+        image's rank-1 translation into its offset, shift the filter's
+        translation support by it, and rebuild the masked stack from the
+        never-moved original stack."""
+        tran = self.par["topT"]                              # (2, S, 2)
+        self.offsets = self.offsets - tran
+        self.par["t"] = self.par["t"] - tran[:, :, None, :]
+        self.par["topT"] = torch.zeros_like(tran)
+        self._rebuild_masked_stack()
+
+    def _rebuild_masked_stack(self):
+        """_img = mask(translate(_imgOri, offset)) (reCentreImg +
+        reMaskImg, src/Optimiser.cpp:6065-6153)."""
+        off = self.offsets
+        shifted = translate_ft(self.imgs_ft_ori, off[..., 0], off[..., 1])
+        if self.para.zero_mask:
+            rl = fft_ops.ifft2_center(shifted).real * self._zero_mask_2d()
+            self.imgs_ft = fft_ops.fft2_center(rl)
+        else:
+            self.imgs_ft = shifted
+
+    def re_mask_img(self):
+        """Optimiser::reMaskImg (src/Optimiser.cpp:6093-6153): re-apply the
+        zero-noise soft mask to the working stack."""
+        if not self.para.zero_mask:
+            return
+        rl = fft_ops.ifft2_center(self.imgs_ft).real * self._zero_mask_2d()
+        self.imgs_ft = fft_ops.fft2_center(rl)
+
+    def _auto_recentre_refs(self):
+        """solventFlatten's refAutoRecentre branch (src/Optimiser.cpp:
+        7390-7425): translate each reference by -O, the symmetrised
+        insert offset, so its density centre returns to the box centre."""
+        o = self.insert_offsets                              # (2, K, 3)
+        self.refs = torch.stack([torch.stack([
+            fft_ops.ifft3_center(translate_ft_3d(
+                fft_ops.fft3_center(self.refs[h, k]), -float(o[h, k, 0]),
+                -float(o[h, k, 1]), -float(o[h, k, 2]))).real
+            for k in range(self.para.k)]) for h in range(2)])
+
     def solvent_flatten(self, use_mask=False):
-        """Soft-mask every reference with zero background (the spherical
-        mask; src/Optimiser.cpp:7768-7990)."""
-        if use_mask:
-            raise _not_ported("solvent flattening with a provided mask")
+        """Soft-mask every reference with zero background
+        (src/Optimiser.cpp:7768-7990). Mask volumes cannot be set in the
+        port yet, so ``use_mask`` finds none and the spherical mask is
+        used, as in the JAX package when no mask was set."""
         n = self.n
         alpha = soft_mask_shape((n, n, n), self.para.mask_radius_px,
                                 EDGE_WIDTH_RL, device=self.device)
@@ -598,19 +765,13 @@ class Optimiser:
     # ------------------------------------------------------------------ run
 
     def run_iteration(self):
-        """One GLOBAL refinement round in the reference's order
+        """One refinement round, global or local, in the reference's order
         (Optimiser::run src/Optimiser.cpp:3561-4075). Per-stage wall clock
         (seconds, synchronised with the device) lands in
         ``history[-1]['timing']``."""
         para = self.para
         search_type_in = self.ladder.search_type
-        if search_type_in != SEARCH_TYPE_GLOBAL:
-            raise _not_ported("the local-search round (norm correction, "
-                              "sigma_rescaled, re_centre_img/re_mask_img)")
-        if para.ref_auto_recentre:
-            raise _not_ported("reference auto-recentring")
-        if para.group_scl and self.iteration != 0:
-            raise _not_ported("group intensity-scale correction")
+        is_global = search_type_in == SEARCH_TYPE_GLOBAL
         timing = {}
         t_last = time.perf_counter()
 
@@ -622,10 +783,12 @@ class Optimiser:
             t_last = now
 
         if not para.skip_e:
-            self.global_scan()
-            mark("expectation_scan")
+            if is_global:
+                self.global_scan()
+                mark("expectation_scan")
             tv0, tv1 = self.local_search()
             mark("expectation_search")
+            self._check_nan("expectation", self.par)
         else:
             tv0, tv1 = self.ladder.t_vari_s0, self.ladder.t_vari_s1
         rc_mean, rc_std = self._refresh_rotation_change()
@@ -635,14 +798,34 @@ class Optimiser:
         elif crit != "fsc_area":
             self.ladder.record_t_vari(tv0, tv1)
         if not para.skip_m:
-            self.maximization_sigma(stats=self._residual_stats())
+            stats = self._residual_stats()
+            if self.iteration != 0 and not is_global:
+                # stacks rescale per image; sigma is re-derived from the
+                # same pass's per-image ori shells
+                self.norm_fac = self.norm_correction(stats=stats)
+                self.maximization_sigma(
+                    stats=stats, sig_override=engine.sigma_rescaled(
+                        stats[6], self.norm_fac, self._t(self.groups_plane),
+                        self._t(self.plane_valid), n_groups=self.n_groups))
+            else:
+                self.maximization_sigma(stats=stats)
+            if is_global and para.group_scl and self.iteration != 0:
+                self.correct_scale(init=False, group=True)
             mark("maximization_stats")
         if not para.skip_r:
             self.reconstruct()
             mark("reconstruction")
             for kk, vv in self.reco_timing.items():
                 timing[f"reco_{kk}"] = round(vv, 3)
-            if not para.global_mask:
+            self._check_nan("reconstruction", {"refs": self.refs,
+                                               "fsc": self.fsc})
+        if not is_global:
+            self.re_centre_img()
+            self.re_mask_img()
+        if not para.skip_r:
+            if para.ref_auto_recentre:
+                self._auto_recentre_refs()
+            if is_global and not para.global_mask:
                 self.solvent_flatten(False)
             else:
                 self.solvent_flatten(para.perform_mask)
@@ -670,7 +853,8 @@ class Optimiser:
             "res_a": float(self.n * para.pixel_size / max(res, 1)),
             "search_type": st, "t_vari": (tv0, tv1),
             "r_change": (rc_mean, rc_std), "class_distr": None,
-            "scale": None, "timing": timing,
+            "scale": self.scale.tolist() if self.n_groups > 1 else None,
+            "timing": timing,
             "n_phase": None if nph is None else nph_stats,
         }
         self.history.append(rec)
@@ -678,6 +862,29 @@ class Optimiser:
                       rec["iter"], rec["r"], rec["res_a"], st,
                       {k: round(v, 3) for k, v in timing.items()})
         return rec
+
+    def run(self, max_iter=None, finalise=True):
+        """Rounds until ``max_iter`` (default ``para.iter_max``) or STOP,
+        after the init-time scale re-balance against a given model
+        (correctScale(true, ...), src/Optimiser.cpp:531-560). Returns the
+        history. The final round and per-round file output are not ported
+        yet: ``finalise=True`` or a ``save_*_each_iter`` flag raises
+        before any round runs."""
+        para = self.para
+        if finalise:
+            raise _not_ported("finalise (the final round)")
+        if para.save_ref_each_iter or para.save_thu_each_iter:
+            raise _not_ported("per-round file output (save_ref_each_iter, "
+                              "save_thu_each_iter)")
+        max_iter = max_iter or para.iter_max
+        if (self.iteration == 0 and getattr(self, "_init_model_given", False)
+                and not para.skip_m and getattr(self, "sig", None)
+                is not None):
+            self.correct_scale(init=True, group=False)
+        for _ in range(max_iter):
+            if self.run_iteration()["search_type"] == SEARCH_TYPE_STOP:
+                break
+        return self.history
 
     def _refresh_rotation_change(self):
         """refreshRotationChange (src/Optimiser.cpp:5386-5482):

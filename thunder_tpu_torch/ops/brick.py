@@ -72,11 +72,6 @@ def unpack_pair_rows(rows):
     return pairs[..., 0].float(), pairs[..., 1].float()
 
 
-def half_rows(mc):
-    """z-rows of a Hermitian half-space table (centered z in [0, mc//2])."""
-    return mc // 2 + 1
-
-
 def pack_vol3_half(vol_ft, dtype=torch.float32):
     """Hermitian half-space gather table: the bricks at centered z >= 0,
     (mc//2 + 1, mc, mc, C). Samples with z < 0 fetch at -k and conjugate

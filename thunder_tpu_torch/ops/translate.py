@@ -29,3 +29,17 @@ def translate_ft(ft, tx, ty):
     phase = (2 * math.pi / n) * (h.float() * tx[..., None, None]
                                  + k.float() * ty[..., None, None])
     return ft * _cis(-phase.float())
+
+
+def translate_ft_3d(ft, tx, ty, tz):
+    """Translate centered volume spectra (..., n, n, n) by (tx, ty, tz)
+    voxels (the reference's auto-recentring, src/Optimiser.cpp:7425)."""
+    from .fft import freq_grid_3d
+
+    n = ft.shape[-1]
+    h, k, l = freq_grid_3d(n, ft.device)
+    tx, ty, tz = (torch.as_tensor(x, dtype=torch.float32, device=ft.device)
+                  [..., None, None, None] for x in (tx, ty, tz))
+    phase = (2 * math.pi / n) * (h.float() * tx + k.float() * ty
+                                 + l.float() * tz)
+    return ft * _cis(-phase.float())

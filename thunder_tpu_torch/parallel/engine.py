@@ -14,6 +14,10 @@ from a ``torch.Generator``; the parity tests replay ``jax.random``):
 - ``scan_init``: Gumbel noise (2, S, K) and two resample uniforms (2, S),
 - ``local_search``: a callable ``phase -> dict`` of per-phase draws,
 - ``insert_fold_reduce``: support indices ri/ti (2, S, n_draw).
+
+Each insert adds an image's DC draws to the centre row once, as their sum
+(``dc_draw_weights``): the same function as the JAX insert, in another add
+order that keeps K2's f32 table at its exact sum.
 """
 
 import torch
@@ -32,12 +36,14 @@ GATHER_BUDGET = 1 << 25
 
 def _flat_tables(bricks):
     """(2, K, hz, mc, mc, C) half-space tables -> (flat (2 K n_vox, C),
-    mc, n_vox)."""
+    mc, n_vox), n_vox = hz mc mc the rows of one table: hz = mc // 2 + 1
+    for the odd crop, mc // 2 where the band's crop is clipped to the even
+    padded box (a band near Nyquist)."""
     mc = bricks.shape[-2]
     if bricks.shape[-4] == mc:
         raise NotImplementedError(
             "engine: full-space 3D brick tables are not ported (half=True)")
-    n_vox = brick.half_rows(mc) * mc * mc
+    n_vox = bricks.shape[-4] * mc * mc
     return bricks.reshape(-1, bricks.shape[-1]), mc, n_vox
 
 
@@ -215,11 +221,31 @@ def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
     return torch.stack(fs), torch.stack(ts), torch.stack(offs)
 
 
-def _insert_chunk(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
-                  t_off, *, pf, n, mc):
-    """Insert one chunk of images' support draws into ``tab`` with K2;
-    returns the chunk's (4,) [sum dir, count] re-centring sums. Its sample
-    temporaries are freed on return, before the fold."""
+def dc_draw_weights(col, row, n_draw):
+    """(D, P) per-draw sample weights that add each image's DC pixel once.
+
+    A pixel at col = row = 0 lands on the centre voxel with frac 0 and a
+    translation ramp of exactly 1 whatever the pose, so its D draws carry
+    one identical value. Summed one at a time into an f32 row, that value
+    rounds the same way on every add and the error grows with the count
+    (12,800 at 256 particles and 100 draws). Weight D on draw 0 and 0 on
+    the others gives the same sum, formed with one rounding; K2 skips the
+    zero rows. Every other pixel keeps weight 1."""
+    dc = (col == 0) & (row == 0)
+    first = torch.arange(n_draw, device=col.device)[:, None] == 0
+    w = torch.where(first, float(n_draw), 0.0)
+    return torch.where(dc[None, :], w, torch.ones_like(w)).to(real_dtype)
+
+
+def chunk_samples(col, row, pmask, d, c, w, r_sup, t_sup, ri, ti, t_off, *,
+                  pf, n, mc, draw_w=None):
+    """One chunk of images' support draws as flat K2 samples.
+
+    Returns (idx (N,) int32, fr, fi, tv (N,) f32, frac (N, 3) f32, o_add
+    (4,) [sum dir, count] re-centring sums), N = B D P in (image, draw,
+    pixel) order. ``draw_w`` (D, P) multiplies every sample's values
+    (``dc_draw_weights``); None inserts every draw as it is, as the JAX
+    insert does."""
     n_vox = mc ** 3
     q_d = particle._take(r_sup, ri.long())                 # (B, D, 4)
     t_d = particle._take(t_sup, ti.long())                 # (B, D, 2)
@@ -232,7 +258,8 @@ def _insert_chunk(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
     coords = projector.slice_coords_3d(rots, col, row, pf=pf)
     tra = translation_phase(col, row, -t_rel[..., 0], -t_rel[..., 1],
                             n)                             # (B, D, P)
-    wv = (w[:, None, None] * pmask).to(real_dtype)
+    pw = pmask if draw_w is None else pmask * draw_w       # (P,) | (D, P)
+    wv = (w[:, None, None] * pw).to(real_dtype)            # (B, 1 | D, P)
     fv = d[:, None, :] * tra * c[:, None, :] * wv
     tv = ((c[:, None, :] ** 2) * wv).expand(fv.shape)
     base = torch.floor(coords)
@@ -241,11 +268,22 @@ def _insert_chunk(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
     valid = torch.all((bi >= 0) & (bi < mc - 1), dim=-1)
     idx = torch.where(valid, idx, torch.full_like(idx, n_vox))
     frac = (coords - base).float()
-    insert_update(tab, idx.reshape(-1).to(torch.int32),
-                  fv.real.reshape(-1).contiguous(),
-                  fv.imag.reshape(-1).contiguous(),
-                  tv.reshape(-1).contiguous(), frac.reshape(-1, 3))
-    return o_add.sum(dim=(0, 1))
+    return (idx.reshape(-1).to(torch.int32), fv.real.reshape(-1).contiguous(),
+            fv.imag.reshape(-1).contiguous(), tv.reshape(-1).contiguous(),
+            frac.reshape(-1, 3), o_add.sum(dim=(0, 1)))
+
+
+def _insert_chunk(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
+                  t_off, *, pf, n, mc):
+    """Insert one chunk of images' support draws into ``tab`` with K2,
+    each image's DC draws added once (``dc_draw_weights``); returns the
+    chunk's (4,) [sum dir, count] re-centring sums. Its sample
+    temporaries are freed on return, before the fold."""
+    *samples, o_add = chunk_samples(
+        col, row, pmask, d, c, w, r_sup, t_sup, ri, ti, t_off, pf=pf, n=n,
+        mc=mc, draw_w=dc_draw_weights(col, row, ri.shape[1]))
+    insert_update(tab, *samples)
+    return o_add
 
 
 def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
@@ -334,3 +372,29 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
     unfl = lambda x: x.reshape((two, s) + x.shape[1:])
     return (grp(sh_o), grp(v), grp(sh_xa), grp(sh_aa), unfl(sh_m),
             unfl(ori))
+
+
+def sigma_rescaled(ori, fac, groups, valid, *, n_groups):
+    """Per-group sigma shell sums AFTER a per-image rescale, from
+    ``residual_stats``' per-image ori shells: sig_g = sum_{l in g} fac_l^2
+    dd_l - 2 fac_l xa_l + aa_l, the same as re-measuring |fac datOri - ctf
+    pri|^2 (allReduceSigma after normCorrection, src/Optimiser.cpp:
+    3405-3419) without a second projection pass. Where the projection fits
+    the data (high-SNR shells) the three terms cancel, so they are combined
+    and summed in float64.
+
+    ori: (2, S, n_shell, 3); fac/groups/valid: (2, S). Returns float64
+    ((G, n_shell), (G,))."""
+    f = fac.double()[..., None]
+    o = ori.double()
+    v = valid.double()
+    sig_img = ((f * f * o[..., 0] - 2.0 * f * o[..., 1] + o[..., 2])
+               * v[..., None])
+    g = groups.reshape(-1).long()
+    n_shell = o.shape[-2]
+    sig = torch.zeros((n_groups, n_shell), dtype=torch.float64,
+                      device=o.device).index_add_(
+        0, g, sig_img.reshape(-1, n_shell))
+    cnt = torch.zeros(n_groups, dtype=torch.float64,
+                      device=o.device).index_add_(0, g, v.reshape(-1))
+    return sig, cnt
