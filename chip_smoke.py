@@ -42,15 +42,38 @@ Phases, each printing a flushed progress line with elapsed seconds:
    c. two further pinned local rounds, timed (wall, median, particles/s:
       a progress reading, not a benchmark), and a local round's peak
       device memory;
-6. a JSON line of per-kernel numbers (launches summed over the rounds of
-   phase 5a-b, and per round), the card line again, and the final status
-   line {"ok": true, "device": {...}}.
+6. path A, 3D classification: configs/demo_3D.json as users write it
+   (K = 4, C4, 2500 x 151 scan; ``class_para``'s deviations: init_res 25 A,
+   no file output) on 512 images of four C4-symmetric phantoms
+   (``class3d_dataset``, 128 a class, noise 0.3), each class's reference
+   seeded from its phantom by this script; a global round (K1 launched, K2
+   fused over the K-fold table: 2 x chunks launches) with K2's whole fused
+   half-0 table held to the exact sum, then two local rounds pinned at
+   r = 40 (K1 not launched, K2 staged class by class: K x 2 x chunks
+   launches); every round held to ROUND_ANG_MAX per class,
+   ROUND_RES_MIN, CLASS_PURITY_MIN and class identity (each class's map
+   correlates best with its own phantom);
+7. path B, 2D classification: configs/demo_2D.json (K = 30, 100 x 151
+   scan) on 1,920 images of 30 views of one phantom (``class2d_dataset``,
+   64 a view, random in-plane angles), references seeded from the views;
+   a global and a local round, each held to ROUND_ANG_MAX (in-plane
+   angle), CLASS2D_PURITY_MIN, class identity and ROUND2D_RES_MIN;
+8. a JSON line of per-kernel numbers (launches summed over the rounds of
+   phases 5a-b, 6 and 7, and per round; K1's readings at the class-stacked
+   shapes; K2's on the fused class table), the card line again, and the
+   final status line {"ok": true, "device": {...}}.
 
-``--data-study`` adds, after phase 5, the global round on bench.py's own
+Phase 3 also holds K1 at the classification paths' class-stacked shapes
+(K1_CLASS_SHAPES: B 64, K 4, R 2500, T 151 and B 64, K 30, R 100, T 151),
+normalised wC included.
+
+``--data-study`` adds, after phase 7, the global round on bench.py's own
 data (asymmetric phantom, noise 1.0) and on the two data sets that change
 one of those two settings, and two pinned local rounds on bench.py's own
 data, and prints their pose error and resolution without bounds: it shows
-what the smoke's easier data changes.
+what the smoke's easier data changes; then both classification paths from
+the JAX package's default of identical references, three global rounds
+each, with purity and resolution per round (no bounds).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX or of the JAX package: the synthetic data are
@@ -90,6 +113,17 @@ R_LOCAL = 40          # bench.py's pinned band of the local rounds
 # global round at band r = 8 does not pin the poses down; 0.3 makes the
 # pose check below meaningful
 NOISE = 0.3
+# the classification paths: configs/demo_3D.json (K = 4) on 4 x 128 images
+# and configs/demo_2D.json (K = 30) on 30 x 64 images (class3d_dataset,
+# class2d_dataset); bars on every round of them, set from the first card
+# runs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): path A read purity
+# 1.0000 in all three rounds, path B 0.8745 in both, and path B's best
+# class's shell 34 of its band 1 .. 34 in both
+N_CLASS3D = 128
+N_CLASS2D = 64
+CLASS_PURITY_MIN = 0.95    # path A: share of images in their own class
+CLASS2D_PURITY_MIN = 0.8   # path B (30 views of one phantom)
+ROUND2D_RES_MIN = 30       # path B: best class's FRC-0.143 shell in band
 
 
 def log(msg):
@@ -131,9 +165,14 @@ def normalised(x):
 
 # --------------------------------------------------------------------- K1
 
-def k1_problem(gen, dev, b, r, t, p, scale=0.05):
+def k1_problem(gen, dev, b, r, t, p, scale=0.05, k=1, plant_all=False):
     """Random scan inputs shaped like the JAX package's fused-kernel test:
-    projections correlated with one image so the posteriors have a peak."""
+    projections of ``k`` classes, pose 3 of class 0 correlated with image
+    0. With ``plant_all`` every image b has a posterior peak, as a real
+    image has: translation 0 is the zero shift (the scan pins it,
+    ``sampling.sample_translations``) and pose (37 b + 3) % r of class
+    b % k is the image's Wiener-fitted projection, dat ctf / (ctf^2 +
+    0.01)."""
     import torch
 
     from thunder_tpu_torch.ops import likelihood
@@ -144,11 +183,17 @@ def k1_problem(gen, dev, b, r, t, p, scale=0.05):
     ctf = torch.rand(b, p, generator=gen, device=dev) * 2 - 1
     sig = 0.5 + 1.5 * torch.rand(b, p, generator=gen, device=dev)
     sig_rcp = likelihood.sigma_reciprocal(sig)
-    proj = torch.complex(torch.randn(1, r, p, generator=gen, device=dev),
-                         torch.randn(1, r, p, generator=gen, device=dev))
+    proj = torch.complex(torch.randn(k, r, p, generator=gen, device=dev),
+                         torch.randn(k, r, p, generator=gen, device=dev))
     proj = (proj * scale).to(c64)
     proj[0, 3] = dat[0] / ctf[0].clamp(min=0.05)
+    if plant_all:
+        for i in range(b):
+            proj[i % k, (37 * i + 3) % r] = dat[i] * ctf[i] / (ctf[i] ** 2
+                                                               + 0.01)
     phase = 2 * torch.pi * torch.rand(t, p, generator=gen, device=dev)
+    if plant_all:
+        phase[0] = 0.0
     tra = torch.complex(torch.cos(phase), torch.sin(phase))
     pm = (torch.rand(p, generator=gen, device=dev) > 0.1).float()
     q, e = likelihood._q_e(dat, ctf, sig_rcp, pm)
@@ -328,6 +373,108 @@ def check_k1(dev):
                 bound_by=by, device_ms=dev_ms, ms_b1024=ms_big,
                 device_ms_b1024=dev_big, library_ms_b1024=lib_big,
                 bound_ms_b1024=bound_big)
+
+
+# shapes of K1 on the classification paths: the global scan at the r = 8
+# ring (256 padded pixels) and 151 translations (trans_s 10 px)
+K1_CLASS_SHAPES = (("class3d", 64, 4, 2500, 151, 256),   # demo_3D: 10000/4
+                   ("class2d", 64, 30, 100, 151, 256))   # demo_2D: m_s 100
+
+
+def check_k1_classes(dev):
+    """K1 at the classification paths' class-stacked shapes against
+    ``scan_plain`` (merged outputs, normalised wC included: with K > 1 the
+    class marginal is a real output), ``scan_tiles_plain`` (raw per-tile
+    outputs: each class's poses padded to whole 64-pose tiles) and
+    ``merge_tiles`` (the per-class sum over tiles), under the K = 1 bars,
+    on two problems a shape: ``k1_problem``'s (one image correlated with
+    one pose) and the same with a posterior peak planted in every image
+    (``plant_all``). The top-pose bar and the planted peaks are held on the
+    second: among 10,000 random poses an image without a peak has near-ties
+    that bf16 flips (the first problem read 0.938 top-pose agreement at
+    the 3D shape on the first card run, errors within the bars). Then the
+    wrapper timed in turns with the batched-matmul yardstick."""
+    import torch
+
+    from thunder_tpu_torch.ops import likelihood
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    launches0 = likelihood.LAUNCHES["scan_fused"]
+    out = {}
+    for label, b, k, r, t, p in K1_CLASS_SHAPES:
+        errs, rels, agree = {}, {}, {}
+        for plant in (False, True):
+            inputs = k1_problem(gen, dev, b, r, t, p, k=k, plant_all=plant)
+            ref = likelihood.scan_plain(*inputs)
+            got = likelihood.scan_fused(*inputs)
+            tile_rels, merge_rel = k1_tile_errs(*inputs)
+            torch.cuda.synchronize()
+            for name in ("wC", "wR", "wT"):
+                if not torch.isfinite(got[name]).all():
+                    raise AssertionError(f"K1 {name} not finite at {label}")
+                rels[name] = max(rels.get(name, 0.0), float(
+                    (ref[name] - got[name]).abs().max()
+                    / ref[name].abs().max()))
+                errs[name] = max(errs.get(name, 0.0), float(
+                    (normalised(ref[name]) - normalised(got[name]))
+                    .abs().max()))
+            top_ref = ref["wR"].reshape(b, -1).argmax(1)
+            top_got = got["wR"].reshape(b, -1).argmax(1)
+            agree[plant] = float((top_ref == top_got).float().mean())
+            cls_agree = float((ref["wC"].argmax(1) == got["wC"].argmax(1))
+                              .float().mean())
+            log(f"K1 {label} B={b} K={k} R={r} T={t} P={p}"
+                f"{' (a peak planted in every image)' if plant else ''}: "
+                "max |norm err| " + " ".join(
+                    f"{x}={v:.3e}" for x, v in errs.items())
+                + "; raw rel " + " ".join(
+                    f"{x}={v:.3e}" for x, v in rels.items())
+                + f"; argmax agreement pose {agree[plant]:.3f} class "
+                f"{cls_agree:.3f}; raw tile outputs rel " + " ".join(
+                    f"{x}={v:.3e}" for x, v in tile_rels.items())
+                + f"; merge kernel rel {merge_rel:.3e}")
+            if (max(errs.values()) > K1_TOL
+                    or max(rels.values()) > K1_RAW_TOL
+                    or max(tile_rels.values()) > K1_RAW_TOL
+                    or merge_rel > K1_MERGE_TOL):
+                raise AssertionError(
+                    f"K1 disagrees with its plain version at {label}: "
+                    f"normalised {errs}, raw {rels}, tiles {tile_rels}, "
+                    f"merge {merge_rel}")
+            if plant:
+                planted = torch.tensor([(i % k) * r + (37 * i + 3) % r
+                                        for i in range(b)], device=dev)
+                hits = float((top_got == planted).float().mean())
+                log(f"K1 {label}: planted peaks found by the kernel "
+                    f"{hits:.3f}, by the plain version "
+                    f"{float((top_ref == planted).float().mean()):.3f}")
+                if agree[plant] < K1_ARGMAX_MIN or hits < 1.0:
+                    raise AssertionError(f"K1 top poses at {label}: "
+                                         f"agreement {agree[plant]}, planted "
+                                         f"peaks found {hits}")
+            del ref, got
+        q, e, proj, tra, pr, pt = inputs
+        wrapper = lambda: likelihood.scan_fused(q, e, proj, tra, pr, pt)
+        lib = batched_matmul(q, tra, proj)
+        ms_a, lib_a = cuda_ms(wrapper, reps=20), cuda_ms(lib, reps=20)
+        plain_ms = cuda_ms(lambda: likelihood.scan_plain(q, e, proj, tra, pr,
+                                                         pt), reps=3, warm=1)
+        lib_b, ms_b = cuda_ms(lib, reps=20), cuda_ms(wrapper, reps=20)
+        ms, lib_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+        dev_ms = device_ms(wrapper, K1_KERNELS, reps=10)
+        bound, by = k1_bound_ms(b, k, r, t, p)
+        log(f"K1 {label} time: wrapper {ms_a:.4f} / {ms_b:.4f} ms, batched "
+            f"matmul {lib_a:.4f} / {lib_b:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"on the card (profiler) {dev_ms:.4f} ms; bound {bound:.6f} ms "
+            f"({by}), share of the wrapper {bound / ms:.4f}")
+        out[label] = dict(shape=[b, k, r, t, p],
+                          max_abs_err=max(errs.values()),
+                          wc_norm_err=errs["wC"], argmax_no_plant=agree[False],
+                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, bound_by=by, device_ms=dev_ms)
+        del q, e, proj, tra, pr, pt, inputs
+    likelihood.LAUNCHES["scan_fused"] = launches0  # check/timing launches
+    return out
 
 
 def batched_matmul(q, tra, proj):
@@ -551,21 +698,11 @@ def k2_local_table(dev, calls):
 
 # ------------------------------------------------------------ the round
 
-def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True):
-    """bench.py's workload made with NumPy + the port: a 6-blob phantom
-    (made C4-symmetric unless ``symmetric`` is False, as bench.py's is)
-    projected at random poses, CTF-modulated, shifted, plus Gaussian noise
-    of ``noise`` x the clean stack's std."""
+def phantom(n, rng, symmetric=True):
+    """bench.py's 6-blob phantom (n, n, n) from ``rng``, made C4-symmetric
+    about z unless ``symmetric`` is False (bench.py's is not)."""
     import numpy as np
-    import torch
 
-    from thunder_tpu_torch.core import projector
-    from thunder_tpu_torch.geom import quat
-    from thunder_tpu_torch.ops import ctf as ctf_ops
-    from thunder_tpu_torch.ops import fft as fft_ops
-    from thunder_tpu_torch.ops.translate import translate_ft
-
-    rng = np.random.default_rng(seed)
     g = np.mgrid[:n, :n, :n].astype(np.float32) - n // 2
     vol = np.zeros((n, n, n), np.float32)
     for _ in range(6):
@@ -577,10 +714,27 @@ def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True):
         for cx, cy in mates[:4 if symmetric else 1]:
             vol += np.exp(-((g[0] - c[2]) ** 2 + (g[1] - cy) ** 2
                             + (g[2] - cx) ** 2) / (2 * s * s))
-    del g
+    return vol
+
+
+def project_stack(dev, vol, b, rng, noise, trans_sd=2.0):
+    """``b`` images of ``vol`` at uniform random poses: projected,
+    CTF-modulated, shifted by N(0, trans_sd) px, plus Gaussian noise of
+    ``noise`` x the clean stack's std. Returns (stack, quats, CTF
+    params)."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.core import projector
+    from thunder_tpu_torch.geom import quat
+    from thunder_tpu_torch.ops import ctf as ctf_ops
+    from thunder_tpu_torch.ops import fft as fft_ops
+    from thunder_tpu_torch.ops.translate import translate_ft
+
+    n = vol.shape[-1]
     q = rng.normal(size=(b, 4))
     q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
-    tr = rng.normal(0, 2.0, (b, 2)).astype(np.float32)
+    tr = rng.normal(0, trans_sd, (b, 2)).astype(np.float32)
     cp = dict(voltage=np.full(b, 300e3), defocus_u=rng.uniform(1e4, 2e4, b),
               defocus_v=rng.uniform(1e4, 2e4, b), defocus_theta=np.zeros(b),
               cs=np.zeros(b), amp_contrast=np.full(b, 0.1),
@@ -606,6 +760,19 @@ def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True):
     stack = np.concatenate(chunks).astype(np.float32)
     stack += rng.normal(0, noise * stack.std(), stack.shape).astype(
         np.float32)
+    return stack, q, cp
+
+
+def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True):
+    """bench.py's workload made with NumPy + the port: a 6-blob phantom
+    (``phantom``) projected at random poses, CTF-modulated, shifted, plus
+    Gaussian noise of ``noise`` x the clean stack's std
+    (``project_stack``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vol = phantom(n, rng, symmetric)
+    stack, q, cp = project_stack(dev, vol, b, rng, noise)
     return vol, stack, q, cp
 
 
@@ -844,6 +1011,463 @@ def time_local_rounds(opt, reps=2):
     return walls, med
 
 
+# ------------------------------------------------------ classification
+
+def class_para(path):
+    """A demo configuration as users write it (``load_para``), with the
+    smoke's deviations: ``init_res`` 25 A instead of 60 (bench.py's value,
+    so that the first global round resolves poses at band r = 8) and no
+    per-round file output (the smoke writes no files). The initial model,
+    particle and mask paths of the file are not read: the data are
+    synthetic and the references are set by this script."""
+    import dataclasses
+    import os
+
+    from thunder_tpu_torch.config import load_para
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+    return dataclasses.replace(load_para(path), init_res=25.0,
+                               save_ref_each_iter=False,
+                               save_thu_each_iter=False)
+
+
+def class3d_dataset(dev, n, per_class, k, noise=NOISE):
+    """Path A's stack: ``per_class`` images of each of ``k`` C4-symmetric
+    phantoms (``synthetic_dataset``'s generator, seeds 0 .. k-1, each with
+    its own poses, shifts and CTFs), noise ``noise`` x each class's clean
+    std. Each phantom and its images are scaled by one factor so that
+    every class's images have the same std: the classes differ in shape,
+    not in scale. Returns (phantoms (k, n, n, n), stack, true quats, true
+    classes, CTF params)."""
+    import numpy as np
+
+    parts = []
+    for c in range(k):
+        vol, stack, q, cp = synthetic_dataset(dev, n, per_class, seed=c,
+                                              noise=noise)
+        a = 1.0 / stack.std()
+        parts.append((vol * a, stack * a, q, cp))
+    cls = np.repeat(np.arange(k), per_class).astype(np.int32)
+    cp = {key: np.concatenate([x[3][key] for x in parts])
+          for key in parts[0][3]}
+    return (np.stack([x[0] for x in parts]),
+            np.concatenate([x[1] for x in parts]),
+            np.concatenate([x[2] for x in parts]), cls, cp)
+
+
+def class2d_dataset(dev, n, per_class, k, noise=NOISE, seed=5):
+    """Path B's stack: the smoke's 6-blob phantom (without the C4 mates, so
+    that no view has an in-plane symmetry) projected at ``k`` fixed random
+    views; each of the ``per_class`` images of a view is rotated in plane
+    by a uniform angle, shifted by N(0, 2) px, CTF-modulated, plus noise of
+    ``noise`` x the clean stack's std. Returns (views (k, n, n) clean
+    class images, stack, true angles (rad), true classes, CTF params)."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.core import projector
+    from thunder_tpu_torch.geom import quat
+    from thunder_tpu_torch.ops import ctf as ctf_ops
+    from thunder_tpu_torch.ops import fft as fft_ops
+    from thunder_tpu_torch.ops.translate import translate_ft
+
+    vol = synthetic_dataset(dev, n, 1, seed=seed, noise=0.0,
+                            symmetric=False)[0]
+    rng = np.random.default_rng(seed)
+    q_view = rng.normal(size=(k, 4))
+    q_view /= np.linalg.norm(q_view, axis=1, keepdims=True)
+    b = k * per_class
+    cls = np.repeat(np.arange(k), per_class).astype(np.int32)
+    phis = rng.uniform(0, 2 * np.pi, b).astype(np.float32)
+    tr = rng.normal(0, 2.0, (b, 2)).astype(np.float32)
+    cp = dict(voltage=np.full(b, 300e3), defocus_u=rng.uniform(1e4, 2e4, b),
+              defocus_v=rng.uniform(1e4, 2e4, b), defocus_theta=np.zeros(b),
+              cs=np.zeros(b), amp_contrast=np.full(b, 0.1),
+              phase_shift=np.zeros(b))
+    cp = {key: v.astype(np.float32) for key, v in cp.items()}
+    vf = projector.build_projectee_3d(torch.as_tensor(vol, device=dev), pf=2)
+    r_view = quat.rotate3d(torch.as_tensor(q_view, dtype=torch.float32,
+                                           device=dev))
+    views = fft_ops.ifft2_center(projector.project_full_3d(
+        vf, r_view, n, n // 2 - 1, pf=2)).real.cpu().numpy()
+    f = torch.arange(n, device=dev) - n // 2
+    colf = f[None, :].expand(n, n).reshape(-1).float()
+    rowf = f[:, None].expand(n, n).reshape(-1).float()
+    chunks = []
+    for s0 in range(0, b, 64):
+        sl = slice(s0, s0 + 64)
+        ph = torch.as_tensor(phis[sl], device=dev)
+        c, s_ = torch.cos(ph), torch.sin(ph)
+        o, z = torch.ones_like(c), torch.zeros_like(c)
+        r_z = torch.stack([c, -s_, z, s_, c, z, z, z, o], -1).reshape(-1, 3, 3)
+        # image(k) = class image(rot2d(phi) k): R_view @ Rz(phi) in 3D
+        rots = r_view[torch.as_tensor(cls[sl], device=dev).long()] @ r_z
+        proj = projector.project_full_3d(vf, rots, n, n // 2 - 1, pf=2)
+        c2d = ctf_ops.ctf_pixels(colf, rowf, n, 1.32, *[
+            torch.as_tensor(cp[key][sl], device=dev)[:, None] for key in
+            ("voltage", "defocus_u", "defocus_v", "defocus_theta", "cs",
+             "amp_contrast", "phase_shift")]).reshape(-1, n, n)
+        sl_ft = translate_ft(proj * c2d,
+                             torch.as_tensor(tr[sl, 0], device=dev),
+                             torch.as_tensor(tr[sl, 1], device=dev))
+        chunks.append(fft_ops.ifft2_center(sl_ft).real.cpu().numpy())
+    del vf
+    stack = np.concatenate(chunks).astype(np.float32)
+    stack += rng.normal(0, noise * stack.std(), stack.shape).astype(
+        np.float32)
+    return views.astype(np.float32), stack, phis, cls, cp
+
+
+def seed_class_refs(opt, maps):
+    """This script's choice, not a feature of the optimiser: after
+    ``init_reference`` (identical references, the JAX package's default)
+    each class's reference is set to its own map (phantom or view) low-
+    passed to the initial band as ``init_reference`` low-passes a given
+    model."""
+    import torch
+
+    from thunder_tpu_torch.ops.filters import low_pass_filter
+
+    fftc, ifftc = opt._ffts()
+    m = torch.as_tensor(maps, dtype=torch.float32, device=opt.device)
+    low = ifftc(low_pass_filter(fftc(m), opt.ladder.r / opt.n, 3.0 / opt.n,
+                                opt.dims)).real
+    opt.refs = low[None].repeat(2, *(1,) * low.ndim).contiguous()
+
+
+def shell_corr(a, b, dims, r):
+    """Normalised correlation of two real maps over their Fourier shells
+    1 .. r: Re sum F_a conj(F_b) / sqrt(sum |F_a|^2 sum |F_b|^2)."""
+    import torch
+
+    from thunder_tpu_torch.ops import fft as fft_ops
+
+    fftc = fft_ops.fft2_center if dims == 2 else fft_ops.fft3_center
+    radius = fft_ops.radius_grid_2d if dims == 2 else fft_ops.radius_grid_3d
+    fa, fb = fftc(a), fftc(b)
+    u = torch.round(radius(a.shape[-1], a.device))
+    sel = (u >= 1) & (u <= r)
+    num = (fa * torch.conj(fb)).real[sel].sum()
+    den = torch.sqrt((fa.abs() ** 2)[sel].sum() * (fb.abs() ** 2)[sel].sum())
+    return float(num / den)
+
+
+def check_classes(opt, maps, cls_true, label, bounds, r,
+                  purity_min=CLASS_PURITY_MIN):
+    """Purity (share of images whose best class is their true class, at
+    ``purity_min``) and class identity (each class's average map
+    correlates best, over shells 1 .. r, with its own true map)."""
+    import numpy as np
+    import torch
+
+    est = opt.best_class
+    purity = float(np.mean(est == cls_true))
+    avg = ((opt.refs[0] + opt.refs[1]) / 2).float()
+    m = torch.as_tensor(maps, dtype=torch.float32, device=opt.device)
+    k = avg.shape[0]
+    corr = np.array([[shell_corr(avg[i], m[j], opt.dims, r) for j in range(k)]
+                     for i in range(k)])
+    own = np.argmax(corr, axis=1)
+    ident = float(np.mean(own == np.arange(k)))
+    distr = np.bincount(est, minlength=k) / len(est)
+    log(f"{label}: purity {purity:.4f}; class distribution "
+        f"{np.round(distr, 4).tolist()}; classes whose map "
+        f"correlates best with their own true map {ident:.3f} (own "
+        f"{np.round(np.diag(corr), 3).tolist()[:8]}...)")
+    if bounds:
+        if purity < purity_min:
+            raise AssertionError(f"{label}: purity {purity} < {purity_min}")
+        if ident < 1.0:
+            wrong = np.nonzero(own != np.arange(k))[0].tolist()
+            raise AssertionError(f"{label}: classes {wrong} correlate best "
+                                 "with another map")
+    return purity, ident
+
+
+def class_pose_errors(opt, q_true, cls_true):
+    """Median top-pose error (deg, C4 mates allowed) of each true class's
+    images against their own phantom's poses."""
+    import numpy as np
+
+    ang = pose_error(opt, q_true)
+    return [float(np.median(ang[cls_true == c]))
+            for c in range(int(cls_true.max()) + 1)]
+
+
+def angle_error_2d(opt, phis):
+    """Per-image in-plane angle error (deg) of the best angle."""
+    import numpy as np
+
+    d = np.angle(np.exp(1j * (opt.best_phi - phis)))
+    return np.degrees(np.abs(d))
+
+
+def class3d_optimiser(dev, para=None, per_class=N_CLASS3D, seeded=True):
+    """Path A's optimiser: ``para`` (default demo_3D.json, K = 4, C4) on
+    ``class3d_dataset``; with ``seeded`` each class's reference starts from
+    its phantom. Returns (opt, phantoms, true quats, true classes)."""
+    from thunder_tpu_torch.core.optimiser import Optimiser
+
+    para = para or class_para("configs/demo_3D.json")
+    vols, stack, q_true, cls, cp = class3d_dataset(dev, para.size, per_class,
+                                                   para.k)
+    log(f"class 3D stack built: {stack.shape}, {para.k} C4-symmetric "
+        f"phantoms x {per_class} images, noise {NOISE}")
+    opt = Optimiser(para, device=dev)
+    opt.set_data(stack, cp)
+    opt.init_reference()
+    opt.init_sigma()
+    if seeded:
+        seed_class_refs(opt, vols)
+        # a model was given: the intensity-scale re-balance that
+        # Optimiser.run makes at its start (one global scale)
+        opt.correct_scale(init=True, group=False)
+    opt._sync()
+    return opt, vols, q_true, cls
+
+
+def class2d_optimiser(dev, para=None, per_class=N_CLASS2D, seeded=True):
+    """Path B's optimiser: ``para`` (default demo_2D.json, K = 30) on
+    ``class2d_dataset``; with ``seeded`` each class's reference starts
+    from its view. Returns (opt, views, true angles, true classes)."""
+    from thunder_tpu_torch.core.optimiser import Optimiser
+
+    para = para or class_para("configs/demo_2D.json")
+    views, stack, phis, cls, cp = class2d_dataset(dev, para.size, per_class,
+                                                  para.k)
+    log(f"class 2D stack built: {stack.shape}, {para.k} views x "
+        f"{per_class} images, noise {NOISE}")
+    opt = Optimiser(para, device=dev)
+    opt.set_data(stack, cp)
+    opt.init_reference()
+    opt.init_sigma()
+    if seeded:
+        seed_class_refs(opt, views)
+        # a model was given: the intensity-scale re-balance that
+        # Optimiser.run makes at its start (one global scale)
+        opt.correct_scale(init=True, group=False)
+    opt._sync()
+    return opt, views, phis, cls
+
+
+def expect_launches(label, launches, scan, inserts):
+    """K1 launched (``scan`` True) or not, K2 exactly ``inserts`` times."""
+    ok_scan = launches["global_scan"] > 0 if scan else \
+        launches["global_scan"] == 0
+    if not ok_scan or launches["insert_update"] != inserts:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"global_scan {'> 0' if scan else '0'} and "
+                             f"insert_update {inserts}")
+
+
+def k2_fused_table(dev, opt, mc, calls):
+    """K2 on the global round's fused K-class table of half 0: the table
+    as the fold received it against the exact f64 sum of its calls' f32
+    corner rows at K2_TOL. The class offsets of that sum are computed here
+    from each image's class (the filter state the insert read) and each
+    sample's voxel row, and every sample's row is checked to lie in its
+    image's class block; then K2 and index_add_ timed in turns on the first
+    chunk's samples."""
+    import torch
+
+    from thunder_tpu_torch.ops import insert
+
+    tab = calls[0][0]
+    r_pad = tab.shape[1]
+    n_vox = mc ** 3
+    k = opt.para.k
+    chunk = opt._chunk()
+    cls_h0 = opt.par["c"][0].long()
+    remapped = []
+    for i, (_, idx, fr, fi, tv, frac) in enumerate(calls):
+        c_img = cls_h0[i * chunk:(i + 1) * chunk]
+        per = idx.shape[0] // c_img.shape[0]
+        c_s = c_img.repeat_interleave(per)
+        keep = idx < k * n_vox
+        if not torch.equal((idx[keep].long() // n_vox), c_s[keep]):
+            raise AssertionError("K2 fused rows outside their image's class "
+                                 "block")
+        vox = torch.where(keep, idx.long() % n_vox, torch.full_like(
+            idx.long(), k * n_vox))
+        idx2 = torch.where(keep, vox + c_s * n_vox, vox).to(torch.int32)
+        remapped.append((tab, idx2, fr, fi, tv, frac))
+    exact = exact_table(remapped, r_pad, dev)
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    abs_err = float((tab.double() - exact).abs().max())
+    rel = abs_err / scale
+    per_class = [float((tab[:, c * n_vox:(c + 1) * n_vox].double()
+                        - exact[:, c * n_vox:(c + 1) * n_vox]).abs().max())
+                 / scale for c in range(k)]
+    n_samples = sum(c[1].shape[0] for c in calls)
+    log(f"K2 on the global round's fused K={k} table of half 0 "
+        f"({len(calls)} calls, {n_samples} samples, {k} x {n_vox} rows, "
+        f"R_pad {r_pad}): max |err| {abs_err:.3e}, / max |exact| {rel:.3e} "
+        "(per class "
+        + " ".join(f"{x:.2e}" for x in per_class) + ")")
+    if not rel < K2_TOL:
+        raise AssertionError(f"K2's fused class table disagrees with the "
+                             f"exact sum of its rows: {rel}")
+    del exact, remapped
+    launches0 = insert.LAUNCHES["insert_update"]
+    _, idx, fr, fi, tv, frac = calls[0]
+    work = insert.new_table(r_pad, device=dev)
+    ms, lib_ms, turns = time_k2(work, idx, fr, fi, tv, frac, reps=5)
+    insert.LAUNCHES["insert_update"] = launches0
+    (bound, by), hit = k2_bound(idx, r_pad)
+    log(f"K2 on a fused global chunk ({idx.shape[0]} samples, {hit} rows "
+        f"hit): kernel {ms:.4f} ms, index_add_ {lib_ms:.4f} ms (turns "
+        + "/".join(f"{x:.4f}" for x in turns)
+        + f"), bound {bound:.4f} ms ({by}), share {bound / ms:.4f}")
+    return dict(class3d_ms=ms, class3d_library_ms=lib_ms,
+                class3d_bound_ms=bound, class3d_bound_by=by,
+                class3d_max_abs_err=abs_err, class3d_rel_err=rel,
+                class3d_samples=idx.shape[0],
+                class3d_rows=k * n_vox)
+
+
+def run_class3d(dev, k2):
+    """Path A: demo_3D.json (K = 4) through one global round and two local
+    rounds pinned at r = 40, each with its launch counts; K2's whole fused
+    half-0 table of the global round held to the exact sum (readings into
+    ``k2``). Returns the launches per round."""
+    opt, vols, q_true, cls = class3d_optimiser(dev)
+    n_chunks = -(-opt.s_slots // opt._chunk())
+    half0 = []
+
+    def grab(args):
+        if not half0 or args[0] is half0[0][0]:
+            half0.append(args)
+
+    per = {}
+    mc = opt.insert_mc()
+    rec, _, per["class3d_global"], _ = drive_round(opt, "class 3D global "
+                                                   "round", capture=grab)
+    if not opt.insert_fused:
+        raise AssertionError("class 3D global round: expected the fused "
+                             "class insert (K n_vox 24 4 <= 3e9 B)")
+    expect_launches("class 3D global round", per["class3d_global"], True,
+                    2 * n_chunks)
+    k2.update(k2_fused_table(dev, opt, mc, half0))
+    half0.clear()
+    for i in (1, 2):
+        check_class3d(opt, vols, q_true, cls, rec, f"class 3D round {i}")
+        pin_local(opt)
+        rec, _, per[f"class3d_local_{i}"], _ = drive_round(
+            opt, f"class 3D local round {i}")
+        if opt.insert_fused:
+            raise AssertionError("class 3D local round: expected the staged "
+                                 "class insert (K n_vox 24 4 > 3e9 B)")
+        expect_launches(f"class 3D local round {i}",
+                        per[f"class3d_local_{i}"], False,
+                        opt.para.k * 2 * n_chunks)
+    check_class3d(opt, vols, q_true, cls, rec, "class 3D round 3")
+    del opt
+    return per
+
+
+def check_class3d(opt, vols, q_true, cls, rec, label, bounds=True):
+    import numpy as np
+
+    errs = class_pose_errors(opt, q_true, cls)
+    log(f"{label}: median pose error by class {np.round(errs, 3).tolist()} "
+        f"deg; res shell {rec['res_shell']} (best class), ladder r "
+        f"{rec['r']}")
+    purity, _ = check_classes(opt, vols, cls, label, bounds, opt.ladder.r)
+    if bounds:
+        if max(errs) >= ROUND_ANG_MAX:
+            raise AssertionError(f"{label}: median pose errors {errs}")
+        if rec["res_shell"] < ROUND_RES_MIN:
+            raise AssertionError(f"{label}: res shell {rec['res_shell']}")
+    return purity
+
+
+def band_shell(fsc, r_u, thres=0.143):
+    """The FRC-``thres`` shell within the reconstruction band: the first
+    shell in 1 .. r_u below ``thres``, less one, else r_u. (Beyond r_u the
+    2D half maps hold only what the real-space grid correction spreads
+    from the band, alike in both halves, so the FRC rises again there and
+    the round's own crossing can read the Nyquist shell.)"""
+    import numpy as np
+
+    below = np.nonzero(np.asarray(fsc)[1:int(r_u) + 1] < thres)[0]
+    return int(below[0]) if below.size else int(r_u)
+
+
+def run_class2d(dev):
+    """Path B: demo_2D.json (K = 30) through one global and one local
+    round. Returns the launches per round."""
+    import numpy as np
+
+    from thunder_tpu_torch.core.optimiser import SEARCH_TYPE_LOCAL
+
+    opt, views, phis, cls = class2d_optimiser(dev)
+    per = {}
+    for name, label in (("class2d_global", "class 2D global round"),
+                        ("class2d_local", "class 2D local round")):
+        if name == "class2d_local":
+            opt.ladder.search_type = SEARCH_TYPE_LOCAL  # band unmoved
+            opt.ladder.n_no_decrease = 0
+        r_u = opt.ladder.r_u
+        rec, _, per[name], _ = drive_round(opt, label)
+        # K1 in the global round only; the 2D insert is index_add_ (the
+        # JAX package's XLA scatter), no K2
+        expect_launches(label, per[name], name == "class2d_global", 0)
+        ang = angle_error_2d(opt, phis)
+        med = float(np.median(ang[opt.best_class == cls]))
+        shell = max(band_shell(f, r_u) for f in opt.fsc)
+        log(f"{label}: median in-plane angle error {med:.3f} deg (images in "
+            f"their true class), best class's FRC-0.143 shell in the band "
+            f"1 .. {r_u}: {shell} (the round's own res shell "
+            f"{rec['res_shell']})")
+        check_classes(opt, views, cls, label, True, opt.ladder.r,
+                      purity_min=CLASS2D_PURITY_MIN)
+        if not med < ROUND_ANG_MAX:
+            raise AssertionError(f"{label}: median angle error {med}")
+        if shell < ROUND2D_RES_MIN:
+            raise AssertionError(f"{label}: best class's band shell {shell} "
+                                 f"< {ROUND2D_RES_MIN}")
+    del opt
+    return per
+
+
+def class_study(dev):
+    """--data-study: both classification paths started from the JAX
+    package's default of identical references (``init_reference()``),
+    three global rounds each, purity and resolution per round, no
+    bounds."""
+    import numpy as np
+
+    opt, vols, _, cls = class3d_optimiser(dev, seeded=False)
+    for i in range(3):
+        rec = opt.run_iteration()
+        log(f"class study 3D round {i + 1}: purity (best label map) "
+            f"{best_map_purity(opt.best_class, cls, opt.para.k):.4f}, res "
+            f"shell {rec['res_shell']}, distribution "
+            f"{np.round(np.asarray(rec['class_distr']), 3).tolist()}")
+    del opt
+    opt, views, _, cls = class2d_optimiser(dev, seeded=False)
+    for i in range(3):
+        rec = opt.run_iteration()
+        log(f"class study 2D round {i + 1}: purity (best label map) "
+            f"{best_map_purity(opt.best_class, cls, opt.para.k):.4f}, res "
+            f"shell {rec['res_shell']}")
+    del opt
+
+
+def best_map_purity(est, cls, k):
+    """Purity under a label map from each estimated class to the true class
+    most of its images hold (classes started identical have arbitrary
+    labels)."""
+    import numpy as np
+
+    hits = 0
+    for c in range(k):
+        sel = est == c
+        if sel.any():
+            hits += np.bincount(cls[sel], minlength=k).max()
+    return hits / len(cls)
+
 def main(argv):
     import torch
 
@@ -874,6 +1498,7 @@ def main(argv):
             f"{sass['global_scan']} (HGMMA = wgmma, HMMA = mma.sync); "
             f"insert atomics {sass['insert_atomics']}")
     k1 = check_k1(dev)
+    k1_cls = check_k1_classes(dev)
     # the global round's insert call: 64 images x 100 draws x 2048 ring
     # pixels into the mc = 165 accumulator (r_u 34 -> table band 40)
     k2 = check_k2(dev, 64 * 100 * 2048, 165)
@@ -892,6 +1517,8 @@ def main(argv):
         k2.update(local_round_walls_s=walls, local_round_median_s=med,
                   local_round_peak_gib=peak)
         del opt
+        per_path.update(run_class3d(dev, k2))
+        per_path.update(run_class2d(dev))
         launches = {name: sum(p[name] for p in per_path.values())
                     for name in ("global_scan", "insert_update")}
     if "--data-study" in argv:
@@ -903,8 +1530,11 @@ def main(argv):
                 run_local_rounds(opt, q_true, bounds=False,
                                  label="data study: pinned local round")
             del opt
+        class_study(dev)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    k1_class_keys = {f"{label}_{key}": v for label, d in k1_cls.items()
+                     for key, v in d.items()}
     paths = lambda name: {k: v[name] for k, v in per_path.items()}
     kernels = [
         dict(name="global_scan", route="cuda",
@@ -915,6 +1545,7 @@ def main(argv):
              **{k: k1[k] for k in keys + (
                  "device_ms", "ms_b1024", "device_ms_b1024",
                  "library_ms_b1024", "bound_ms_b1024")},
+             **k1_class_keys,
              tensor_core_sass=None if sass is None else sass["global_scan"]),
         dict(name="insert_update", route="cuda",
              source="thunder_tpu_torch/csrc/insert.cu",
@@ -922,8 +1553,8 @@ def main(argv):
              launches=launches["insert_update"],
              launches_per_path=paths("insert_update"),
              **{k: k2[k] for k in keys + tuple(
-                 x for x in k2 if x.startswith(("main_path_", "local_round_"))
-             )}),
+                 x for x in k2 if x.startswith(("main_path_", "local_round_",
+                                                "class3d_")))}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)  # as nvidia-smi gives it, own line

@@ -23,6 +23,15 @@ by draw (the JAX insert's order).
 With a path argument the Chrome traces of the profiled rounds are written
 there (global) and beside it with ``_local`` before the suffix. Every
 number is printed with the card's name and power limit.
+
+    python3 profile_torch.py --classes [TRACE.json.gz]
+
+does the same for ``chip_smoke.py``'s 3D classification path (path A:
+configs/demo_3D.json, K = 4, 512 particles, seeded references): a K = 4
+global round (the fused class insert) and a local round pinned at r = 40
+(the insert staged class by class), and on one local insert chunk the
+sample build and K2 of the four staged passes against one fused pass into
+the K-fold table at the same band.
 """
 
 import json
@@ -101,18 +110,15 @@ def dc_merge_cost(opt, reps=5):
     the reconstruction's own inputs): the sample build and K2 with the DC
     merge (``engine.dc_draw_weights``, the port's path) and draw by draw
     (the JAX insert's order), CUDA-event ms each."""
-    import numpy as np
-
     import chip_smoke as cs
-    from thunder_tpu_torch.ops import brick, insert, pixels
+    from thunder_tpu_torch.ops import insert, pixels
     from thunder_tpu_torch.parallel import engine
 
     para, n, s = opt.para, opt.n, opt._chunk()
     r_u = opt.ladder.r_u
     ring = pixels.pixel_ring(n, 0, r_u)
     col, row, pmask = opt._ring_tensors(ring)
-    mc = brick.crop_size(min(-(-int(np.ceil(r_u)) // 8) * 8, n // 2 - 2),
-                         para.pf)
+    mc = opt.insert_mc(r_u)
     dat, c, _ = opt._plane_ring_data(ring, ori=True, refined_defocus=True)
     n_draw = min(para.m_reco, para.m_l_r)
     par = opt.par
@@ -140,6 +146,100 @@ def dc_merge_cost(opt, reps=5):
     return out
 
 
+def class_insert_cost(opt, reps=3):
+    """One insert chunk of a K-class local round (half 0, first chunk): the
+    staged insert builds the chunk's samples once per class (weights of
+    the other classes zeroed) and adds them into a one-class table; the
+    fused one builds them once, rows offset by class, into the K-fold
+    table. CUDA-event ms of each build and K2 call, and the tables'
+    sizes."""
+    import torch
+
+    import chip_smoke as cs
+    from thunder_tpu_torch.ops import insert, pixels
+    from thunder_tpu_torch.parallel import engine
+
+    para, n, s, k = opt.para, opt.n, opt._chunk(), opt.para.k
+    r_u = opt.ladder.r_u
+    ring = pixels.pixel_ring(n, 0, r_u)
+    col, row, pmask = opt._ring_tensors(ring)
+    mc = opt.insert_mc(r_u)
+    dat, c, _ = opt._plane_ring_data(ring, ori=True, refined_defocus=True)
+    n_draw = min(para.m_reco, para.m_l_r)
+    par = opt.par
+    ri, ti = opt.draws.insert(opt.iteration, (2, opt.s_slots), n_draw,
+                              par["r"].shape[2], par["t"].shape[2])
+    scores = opt.scores if para.par_gra else torch.ones_like(opt.scores)
+    w = (scores * opt._t(opt.plane_valid) / n_draw)[0, :s]
+    cls = par["c"][0, :s].long()
+    dw = engine.dc_draw_weights(col, row, n_draw)
+    args = (col, row, pmask, dat[0, :s], c[0, :s])
+    rest = (par["r"][0, :s], par["t"][0, :s], ri[0, :s], ti[0, :s],
+            opt.offsets[0, :s])
+    out = {"mc": mc, "k": k, "chunk_images": s}
+    one = insert.new_table(insert.rows_pad(mc ** 3 + 1), device=opt.device)
+    build = lambda kk: engine.chunk_samples(
+        *args, w * (cls == kk), *rest, pf=para.pf, n=n, mc=mc, draw_w=dw)
+    k2_ms = []
+    for kk in range(k):
+        samples = build(kk)[:-1]
+        k2_ms.append(cs.cuda_ms(lambda: insert.insert_update(one, *samples),
+                                reps=reps))
+        del samples
+    out["staged"] = {
+        "build_ms_per_class": cs.cuda_ms(lambda: build(0), reps=reps),
+        "k2_ms_per_class": k2_ms, "table_gib": one.numel() * 4 / 2 ** 30}
+    del one
+    fused = insert.new_table(insert.rows_pad(k * mc ** 3 + 1),
+                             device=opt.device)
+    build_f = lambda: engine.chunk_samples(
+        *args, w, *rest, pf=para.pf, n=n, mc=mc, draw_w=dw, cls=cls,
+        k_classes=k)
+    samples = build_f()[:-1]
+    out["fused"] = {
+        "build_ms": cs.cuda_ms(build_f, reps=reps),
+        "k2_ms": cs.cuda_ms(lambda: insert.insert_update(fused, *samples),
+                            reps=reps),
+        "table_gib": fused.numel() * 4 / 2 ** 30}
+    del samples, fused
+    insert.LAUNCHES["insert_update"] = 0
+    return out
+
+
+def main_classes(argv):
+    """--classes: chip_smoke's path A, profiled."""
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    opt = cs.class3d_optimiser(dev)[0]
+    wall, peak = timed_round(opt)
+    print(f"warm-up K = 4 global round: {wall:.3f} s, peak device memory "
+          f"{peak:.3f} GiB", flush=True)
+    del opt
+    opt = cs.class3d_optimiser(dev)[0]
+    trace = argv[0] if argv else None
+    out = {"card": card, "warm_up_global_peak_gib": peak,
+           "global": profiled_round(opt, trace),
+           "global_insert_fused": opt.insert_fused}
+    cs.pin_local(opt)
+    wall, peak = timed_round(opt)
+    print(f"warm-up pinned K = 4 local round: {wall:.3f} s, peak device "
+          f"memory {peak:.3f} GiB", flush=True)
+    out["warm_up_local_peak_gib"] = peak
+    cs.pin_local(opt)
+    out["local"] = profiled_round(
+        opt, trace and trace.replace(".json", "_local.json"))
+    out["local_insert_fused"] = opt.insert_fused
+    out["insert_chunk_staged_vs_fused"] = class_insert_cost(opt)
+    print(json.dumps(out, indent=1), flush=True)
+    print(f"card: {card}", flush=True)
+    return 0
+
+
 def main(argv):
     import torch
 
@@ -148,6 +248,8 @@ def main(argv):
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
         return 2
+    if "--classes" in argv:
+        return main_classes([a for a in argv if a != "--classes"])
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(f"card: {card}", flush=True)

@@ -44,3 +44,40 @@ def test_optimiser_refuses_backend_choices(field, value):
     para = tconfig.Para(size=32, sym="C4", **{field: value})
     with pytest.raises(ValueError, match=field):
         Optimiser(para, device="cpu")
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(
+    os.path.join(CONFIG_DIR, "demo*.json"))))
+def test_load_para_matches_field_by_field(path):
+    """The port's own JSON loader reads every demo configuration as the
+    JAX package's does, mode-dependent sampling keys included."""
+    jp, tp = jconfig.load_para(path), tconfig.load_para(path)
+    for f in dataclasses.fields(jconfig.Para):
+        assert getattr(tp, f.name) == getattr(jp, f.name), f.name
+
+
+def test_load_para_mode_keys():
+    """2D files take the (2D) sampling keys, 3D files the (3D) ones."""
+    p2 = tconfig.load_para(os.path.join(CONFIG_DIR, "demo_2D.json"))
+    p3 = tconfig.load_para(os.path.join(CONFIG_DIR, "demo_3D.json"))
+    assert (p2.mode, p2.k, p2.m_s, p2.m_l_r) == ("2d", 30, 100, 9)
+    assert (p3.mode, p3.k, p3.m_s, p3.m_l_r) == ("3d", 4, 10000, 125)
+
+
+@pytest.mark.parametrize("src", [
+    {"Basic": {"Number of Clases": 4}},
+    {"Basics": {"Number of Classes": 4}},
+    {"Advanced": {"Padding Factor": 2, "Paddding Factor": 3}}])
+def test_check_keys_rejects_unknown_keys(src):
+    """An unknown key (or section) raises under ``strict`` and warns
+    otherwise, naming the key, as in the JAX package."""
+    with pytest.raises(KeyError) as jerr:
+        jconfig.load_para(src, strict=True)
+    with pytest.raises(KeyError) as terr:
+        tconfig.load_para(src, strict=True)
+    assert str(terr.value) == str(jerr.value)
+    with pytest.warns(UserWarning):
+        unknown = tconfig.check_keys(src)
+    with pytest.warns(UserWarning):
+        assert unknown == jconfig.check_keys(src)
+    assert len(unknown) == 1

@@ -57,6 +57,30 @@ def per_image_draws(keys, n_r, n_t):
     }
 
 
+@partial(jax.jit, static_argnums=(1, 2))
+def per_image_draws_2d(keys, n_r, n_t):
+    """The 2D-mode draws of one phase from (N, 2) phase keys: the von
+    Mises uniforms ``particle.perturb_r_2d`` draws from sub-key 0
+    (``directional.sample_vms``: split into ku, kz, ks), then as in 3D."""
+    from thunder_tpu.geom.directional import VMS_PROPOSAL_ROUNDS as rounds
+
+    subs = jax.vmap(lambda k: jax.random.split(k, 7))(keys)
+    kv = jax.vmap(lambda k: jax.random.split(k, 3))(subs[:, 0])
+    f32 = jnp.float32
+    uni = lambda shape, **kw: jax.vmap(
+        lambda k: jax.random.uniform(k, shape, f32, **kw))
+    return {
+        "u_z": uni((rounds, n_r))(kv[:, 1]),
+        "u_2": uni((rounds, n_r), minval=1e-12)(kv[:, 0]),
+        "u_s": uni((n_r,))(kv[:, 2]),
+        "theta": uni((n_r,), maxval=2 * jnp.pi)(kv[:, 1]),
+        "normals_t": jax.vmap(lambda k: jax.random.normal(k, (n_t, 2), f32))(
+            subs[:, 1]),
+        "u0_r": uni(())(subs[:, 3]),
+        "u0_t": uni(())(subs[:, 4]),
+    }
+
+
 @partial(jax.jit, static_argnums=(1, 2, 3))
 def insert_draws(keys, n_draw, n_r, n_t):
     """Support indices of the insert draws from (N, 2) per-image keys."""
@@ -108,9 +132,19 @@ class JaxDraws:
         n = int(np.prod(shape))
         return tt(jax.random.normal(sub, (n, 4))).reshape(tuple(shape) + (4,))
 
+    def scale_angles(self, shape):
+        self.key, sub = jax.random.split(self.key)
+        return tt(jax.random.uniform(sub, tuple(shape), minval=0.0,
+                                     maxval=2 * np.pi))
+
     def scan_grid(self, n_r, n_t):
         self.key, kr, kt = jax.random.split(self.key, 3)
         return (tt(jax.random.normal(kr, (n_r, 4))),
+                tt(jax.random.normal(kt, (n_t, 2))))
+
+    def scan_grid_2d(self, n_r, n_t):
+        self.key, kr, kt = jax.random.split(self.key, 3)
+        return (tt(jax.random.uniform(kr, (n_r,))),
                 tt(jax.random.normal(kt, (n_t, 2))))
 
     def scan_seed(self, iteration, shape, k):
@@ -118,13 +152,14 @@ class JaxDraws:
         return (self._plane(g, shape), self._plane(u_r, shape),
                 self._plane(u_t, shape))
 
-    def phase_draws(self, iteration, shape, n_r, n_t):
+    def phase_draws(self, iteration, shape, n_r, n_t, mode="3d"):
         keys = self._keys(iteration, 2)
+        fn = per_image_draws_2d if mode == "2d" else per_image_draws
 
         def draw(phase):
             kph = _phase_keys(keys, phase)
             return {k: self._plane(v, shape)
-                    for k, v in per_image_draws(kph, n_r, n_t).items()}
+                    for k, v in fn(kph, n_r, n_t).items()}
         return draw
 
     def insert(self, iteration, shape, n_draw, n_r, n_t):
@@ -137,6 +172,13 @@ class JaxDraws:
                                             maxval=2 * jnp.pi,
                                             dtype=jnp.float32))
         return u(ka), u(kb)
+
+    def phase_field(self, shape):
+        # balance_class: one split per resigned class and half, then
+        # spectrum.random_phase's uniform field
+        self.key, sub = jax.random.split(self.key)
+        return tt(jax.random.uniform(sub, tuple(shape), minval=0.0,
+                                     maxval=2 * jnp.pi, dtype=jnp.float32))
 
 
 def jax_state(opt):
@@ -153,9 +195,12 @@ def jax_state(opt):
            "imgs_ft_ori": np.asarray(opt.imgs_ft_ori),
            "scale": np.asarray(opt.scale)}
     for key, attr in (("fsc", "fsc"), ("top_r_prev", "_top_r_prev"),
-                      ("insert_offsets", "insert_offsets")):
+                      ("insert_offsets", "insert_offsets"),
+                      ("c_distr", "c_distr")):
         if getattr(opt, attr, None) is not None:
             out[key] = np.asarray(getattr(opt, attr))
+    if getattr(opt, "_w_warm", None):
+        out["w_warm"] = {k: np.asarray(v) for k, v in opt._w_warm.items()}
     return out
 
 

@@ -5,9 +5,13 @@ between the packages as ``Para(**dataclasses.asdict(para))``. Where a field
 names a TPU backend choice, the port reads it by device: ``fused_kernels``
 and ``insert_impl`` = "auto" mean the hand-written CUDA kernel on a CUDA
 device and the plain PyTorch version on the CPU; ``Optimiser`` refuses any
-other value. The JSON parameter-file loader is not ported yet.
+other value.
+
+``load_para`` reads the reference-schema JSON parameter files
+(``configs/demo*.json``) with the port's own copy of the key tables.
 """
 
+import json
 from dataclasses import dataclass
 
 
@@ -123,3 +127,142 @@ class Para:
     @property
     def mask_radius_px(self):
         return self.mask_radius / self.pixel_size
+
+
+# JSON key table — byte-identical to the reference's #define KEY_* strings
+_JSON_KEYS = {
+    "Basic": {
+        "Number of Threads Per Process": ("n_threads", int),
+        "2D or 3D Mode": ("mode", lambda s: s.lower()),
+        "Global Search": ("g_search", bool),
+        "Local Search": ("l_search", bool),
+        "CTF Search": ("c_search", bool),
+        "Number of Classes": ("k", int),
+        "Size of Image": ("size", int),
+        "Pixel Size (Angstrom)": ("pixel_size", float),
+        "Radius of Mask on Images (Angstrom)": ("mask_radius", float),
+        "Estimated Translation (Pixel)": ("trans_s", float),
+        "Initial Resolution (Angstrom)": ("init_res", float),
+        "Perform Global Search Under (Angstrom)": ("global_search_res", float),
+        "Symmetry": ("sym", str),
+        "Initial Model": ("init_model", str),
+        ".thu File Storing Paths and CTFs of Images": ("db", str),
+        "Path of Particles": ("par_prefix", str),
+        "Prefix of Destination": ("dst_prefix", str),
+        "Path of Output": ("output_directory", str),
+        "Prefix of Output": ("output_file_prefix", str),
+        "Calculate FSC Using Core Region": ("core_fsc", bool),
+        "Calculate FSC Using Masked Region": ("mask_fsc", bool),
+        "Particle Grading": ("par_gra", bool),
+        "Auto-Recentre Reference": ("ref_auto_recentre", bool),
+    },
+    "Reference Mask": {
+        "Perform Reference Mask": ("perform_mask", bool),
+        "Perform Reference Mask During Global Search": ("global_mask", bool),
+        "Provided Mask": ("mask", str),
+    },
+    "Subtract": {
+        "Subtract Masked Region Reference From Images": ("subtract", bool),
+        "Region Need to Be Centred": ("region_centre", str),
+    },
+    "Advanced": {
+        "Save Reference(s) Each Iteration": ("save_ref_each_iter", bool),
+        "Save .thu File Each Iteration": ("save_thu_each_iter", bool),
+        "Max Number of Iteration": ("iter_max", int),
+        "Using Golden Standard FSC": ("golden_standard", bool),
+        "Padding Factor": ("pf", int),
+        "MKB Kernel Radius": ("a", float),
+        "MKB Kernel Smooth Factor": ("alpha", float),
+        "Number of Sampling Points of Translation in Local Search":
+            ("m_l_t", int),
+        "Number of Sampling Points of Defocus in Local Search": ("m_l_d", int),
+        "Number of Sampling Points Used in Reconstruction": ("m_reco", int),
+        "Ignore Signal Under (Angstrom)": ("ignore_res", float),
+        "Correct Intensity Scale Using Signal Under (Angstrom)":
+            ("scl_cor_res", float),
+        "FSC Threshold for Cutoff Frequency": ("thres_cutoff_fsc", float),
+        "FSC Threshold for Reporting Resolution": ("thres_report_fsc", float),
+        "FSC Threshold for Scale Correction": ("thres_scl_cor_fsc", float),
+        "Grouping when Calculating Sigma": ("group_sig", bool),
+        "Grouping when Correcting Intensity Scale": ("group_scl", bool),
+        "Mask Images with Zero Noise": ("zero_mask", bool),
+        "CTF Refine Standard Deviation": ("ctf_refine_s", float),
+    },
+    "Professional": {
+        "Translation Search Factor": ("trans_search_factor", float),
+        "Perturbation Factor (Large)": ("perturb_factor_l", float),
+        "Perturbation Factor (Small, Global)":
+            ("perturb_factor_s_global", float),
+        "Perturbation Factor (Small, Local)":
+            ("perturb_factor_s_local", float),
+        "Perturbation Factor (Small, CTF)": ("perturb_factor_s_ctf", float),
+        "Skip Expectation": ("skip_e", bool),
+        "Skip Maximization": ("skip_m", bool),
+        "Skip Reconstruction": ("skip_r", bool),
+    },
+}
+
+
+# mode-dependent sampling keys handled outside the flat table
+_MODE_KEYS = frozenset({
+    "Number of Sampling Points for Scanning in Global Search (2D)",
+    "Number of Sampling Points for Scanning in Global Search (3D)",
+    "Number of Sampling Points of Rotation in Local Search (2D)",
+    "Number of Sampling Points of Rotation in Local Search (3D)",
+})
+
+
+def check_keys(src, strict=False):
+    """Reject (strict) or warn about unrecognised parameter keys — the
+    reference aborts naming the exact missing/typo'd key
+    (appsrc/thunder.cpp:41-77); silently running with defaults hides
+    typos."""
+    unknown = []
+    for section, sec in src.items():
+        known = _JSON_KEYS.get(section)
+        if known is None:
+            unknown.append(f"section '{section}'")
+            continue
+        for key in sec:
+            if key not in known and key not in _MODE_KEYS:
+                unknown.append(f"{section}: '{key}'")
+    if unknown:
+        msg = "unrecognised parameter key(s): " + "; ".join(unknown)
+        if strict:
+            raise KeyError(msg)
+        import warnings
+
+        warnings.warn(msg, stacklevel=3)
+    return unknown
+
+
+def load_para(path_or_dict, strict=False):
+    """Parse a reference-schema JSON parameter file into a Para.
+
+    Missing keys keep defaults (the reference aborts — we are permissive so
+    minimal configs work); unrecognised keys warn, or raise with the exact
+    key name under ``strict`` (appsrc/thunder.cpp:41-77); mode-dependent
+    keys (sampling points 2D/3D) are resolved after the mode is known."""
+    if isinstance(path_or_dict, dict):
+        src = path_or_dict
+    else:
+        with open(path_or_dict) as f:
+            src = json.load(f)
+
+    check_keys(src, strict=strict)
+    para = Para()
+    for section, keys in _JSON_KEYS.items():
+        sec = src.get(section, {})
+        for key, (attr, conv) in keys.items():
+            if key in sec:
+                setattr(para, attr, conv(sec[key]))
+
+    adv = src.get("Advanced", {})
+    tag = "(2D)" if para.mode == "2d" else "(3D)"
+    scan = f"Number of Sampling Points for Scanning in Global Search {tag}"
+    local = f"Number of Sampling Points of Rotation in Local Search {tag}"
+    if scan in adv:
+        para.m_s = int(adv[scan])
+    if local in adv:
+        para.m_l_r = int(adv[local])
+    return para

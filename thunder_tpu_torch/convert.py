@@ -3,13 +3,15 @@
 The state travels as a plain dict of NumPy arrays, so this module imports
 neither package's optimiser internals beyond the port's own:
 
-- ``refs`` (2, K, n, n, n) references, ``sig`` (G, n//2) noise spectra,
+- ``refs`` (2, K, n, n[, n]) references, ``sig`` (G, n//2) noise spectra,
 - ``par``: the particle-filter dict (r, t, d, c, wR, wT, wD, topR, topT,
   topD, k1, k2, k3, s0, s1, sD, pfR, pfT, pfD), each (2, S, ...),
 - ``ladder``: the LadderState fields as a dict,
 - ``plane_index``/``plane_valid``/``groups_plane`` (2, S) layout,
 - ``offsets`` (2, S, 2), ``scores`` (2, S), ``iteration`` and optionally
-  ``fsc`` (K, n//2),
+  ``fsc`` (K, n//2), ``c_distr`` (K,) the class fractions of the last
+  global round and ``w_warm``, a dict class -> (2, mc^d..) converged
+  C-balance weights of the last reconstruction,
 - optionally the state a local round changes: ``imgs_ft`` and
   ``imgs_ft_ori`` (2, S, n, n) complex64 stacks, ``scale`` (G,) group
   scales, ``top_r_prev`` (N, 4) the previous round's top rotations in image
@@ -68,6 +70,11 @@ def load_state(opt, state):
         opt._top_r_prev = np.array(state["top_r_prev"])
     if state.get("insert_offsets") is not None:
         opt.insert_offsets = np.array(state["insert_offsets"], np.float32)
+    if state.get("c_distr") is not None:
+        opt.c_distr = np.array(state["c_distr"])
+    if state.get("w_warm") is not None:
+        opt._w_warm = {int(k): t(v, torch.float32)
+                       for k, v in state["w_warm"].items()}
     opt._brick_cache = None
     return opt
 
@@ -85,7 +92,10 @@ def state_dict(opt):
     for name in _PLANE:
         out[name] = np.array(getattr(opt, name))
     for key, attr in (("fsc", "fsc"), ("top_r_prev", "_top_r_prev"),
-                      ("insert_offsets", "insert_offsets")):
+                      ("insert_offsets", "insert_offsets"),
+                      ("c_distr", "c_distr")):
         if getattr(opt, attr, None) is not None:
             out[key] = np.array(getattr(opt, attr))
+    if getattr(opt, "_w_warm", None):
+        out["w_warm"] = {k: n(v) for k, v in opt._w_warm.items()}
     return out

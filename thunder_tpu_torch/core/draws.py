@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..geom.directional import VMS_PROPOSAL_ROUNDS
+
 
 class Draws:
     def __init__(self, seed, device):
@@ -36,10 +38,20 @@ class Draws:
         (``Optimiser.correct_scale(init=True)``)."""
         return self._randn(*shape, 4)
 
+    def scale_angles(self, shape):
+        """2D mode: the random in-plane angles (2, S) in [0, 2 pi) of the
+        init-time scale re-balance."""
+        return self._rand(*shape) * (2 * math.pi)
+
     def scan_grid(self, n_r, n_t):
         """Normals for the scan rotations (n_r, 4) and translations
         (n_t, 2)."""
         return self._randn(n_r, 4), self._randn(n_t, 2)
+
+    def scan_grid_2d(self, n_r, n_t):
+        """2D mode: uniforms (n_r,) in [0, 1) for the scan's in-plane
+        angles and normals (n_t, 2) for its translations."""
+        return self._rand(n_r), self._randn(n_t, 2)
 
     def scan_seed(self, iteration, shape, k):
         """Filter seeding: Gumbel noise (2, S, K) for the class draw and
@@ -48,10 +60,20 @@ class Draws:
         return -torch.log(-torch.log(u)), self._rand(*shape), \
             self._rand(*shape)
 
-    def phase_draws(self, iteration, shape, n_r, n_t):
+    def phase_draws(self, iteration, shape, n_r, n_t, mode="3d"):
         """Callable phase -> dict of that phase's draws (see
-        ``engine.local_search``)."""
+        ``engine.local_search``); in 2D mode the von Mises sampler's
+        uniforms replace the rotation normals and the anchor."""
         def draw(phase):
+            if mode == "2d":
+                rounds = (*shape, VMS_PROPOSAL_ROUNDS, n_r)
+                return {"u_z": self._rand(*rounds),
+                        "u_2": self._rand(*rounds).clamp(min=1e-12),
+                        "u_s": self._rand(*shape, n_r),
+                        "theta": self._rand(*shape, n_r) * (2 * math.pi),
+                        "normals_t": self._randn(*shape, n_t, 2),
+                        "u0_r": self._rand(*shape),
+                        "u0_t": self._rand(*shape)}
             return {"normals_r": self._randn(*shape, n_r, 4),
                     "normals_t": self._randn(*shape, n_t, 2),
                     "u0_r": self._rand(*shape), "u0_t": self._rand(*shape),
@@ -65,6 +87,12 @@ class Draws:
 
     def fsc_phases(self, n):
         """Two uniform [0, 2 pi) phase fields (n, n, n) for the
-        random-phase FSC correction."""
+        random-phase FSC correction (asked once per class)."""
         return (self._rand(n, n, n) * (2 * math.pi),
                 self._rand(n, n, n) * (2 * math.pi))
+
+    def phase_field(self, shape):
+        """One uniform [0, 2 pi) phase field of a map's shape, for the
+        random phases of a class that ``balance_class`` resigns (asked
+        once per resigned class and half)."""
+        return self._rand(*shape) * (2 * math.pi)

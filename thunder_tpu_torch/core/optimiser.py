@@ -1,4 +1,5 @@
-"""The refinement loop, global and local-search rounds (port of
+"""The refinement loop, global and local-search rounds, for 3D refinement,
+3D classification (K > 1) and 2D classification (port of
 ``thunder_tpu.core.optimiser``; Optimiser::run src/Optimiser.cpp:3561-4075).
 
 Every per-image quantity lives as a (2, S, ...) tensor — plane 0 =
@@ -10,21 +11,26 @@ hemisphere A, plane 1 = B, S slots per plane (invalid slots carry
 - M-step: ``_residual_stats``, then on local rounds ``norm_correction``
   and ``engine.sigma_rescaled``, and ``maximization_sigma``; the group
   intensity-scale correction (``correct_scale``) on later global rounds,
-- ``reconstruct``: engine.insert_fold_reduce (kernel K2), grid-exact
-  symmetrisation, per-half Wiener/C-balance, golden-standard FSC with the
-  random-phase core correction, hemisphere averaging,
-- on local rounds ``re_centre_img`` and ``re_mask_img``; reference
+- ``reconstruct``: engine.insert_fold_reduce (kernel K2 in 3D; the K
+  classes fused into one accumulator, or inserted one at a time past
+  FUSED_CLASS_BYTES), then per class grid-exact symmetrisation, per-half
+  Wiener/C-balance, golden-standard FSC with the random-phase core
+  correction, hemisphere averaging; after a global round ``balance_class``,
+- on local 3D rounds ``re_centre_img`` and ``re_mask_img``; reference
   auto-recentring, solvent flattening (the spherical mask), the frequency
-  ladder and the search-type switch.
+  ladder (on the best class's resolution) and the search-type switch.
 
 ``run`` does the init-time scale re-balance against a given model and
 then rounds until ``iter_max`` or STOP.
 
+2D mode (``para.mode == "2d"``) refines in-plane angles against K class
+averages (2, K, n, n) with the bilinear 2D tables and the 2D insert.
+
 Not ported yet, and raising ``NotImplementedError`` where a run would
-reach them: 2D mode, K > 1, the MKB insert, CTF search, provided mask
-volumes (``solvent_flatten`` uses the spherical mask, as the JAX package
-does when no mask was set), the final round (``run(finalise=True)``) and
-file output.
+reach them: the MKB insert, CTF search, provided mask volumes
+(``solvent_flatten`` uses the spherical mask, as the JAX package does when
+no mask was set), the final round (``run(finalise=True)``) and file
+output.
 """
 
 import dataclasses
@@ -65,6 +71,12 @@ FSC_INCREASE = 0.005
 CUTOFF_BEYOND_RES = 0
 
 EDGE_WIDTH_RL = 6.0  # include/Macro.h
+
+# a K-class round inserts into one K-fold accumulator while that holds at
+# most this many bytes (K n_vox rows x 24 channels x 4 B in 3D, 12 in 2D),
+# and otherwise one class at a time with the other classes' weights zeroed
+# (the JAX package's rule, thunder_tpu/core/optimiser.py:1428-1429)
+FUSED_CLASS_BYTES = 3e9
 
 
 def stat_mas(x):
@@ -189,10 +201,6 @@ class Optimiser:
     DEFAULT_IMAGE_BATCH = 64
 
     def __init__(self, para: Para, device=None, draws=None):
-        if para.mode != "3d":
-            raise _not_ported("2D mode")
-        if para.k != 1:
-            raise _not_ported("K > 1 classification")
         if para.mkb_kernel:
             raise _not_ported("the MKB insert kernel")
         if para.c_search:
@@ -210,6 +218,7 @@ class Optimiser:
         self.draws = draws if draws is not None else Draws(para.seed,
                                                            self.device)
         self.sym = Symmetry(para.sym)
+        self.dims = 2 if para.mode == "2d" else 3
         self.n = para.size
         self.iteration = 0
         self.history = []
@@ -298,6 +307,16 @@ class Optimiser:
     def best_quat(self):
         return self._from_plane(self.par["topR"])
 
+    @property
+    def best_class(self):
+        return self._from_plane(self.par["c"])
+
+    @property
+    def best_phi(self):
+        """2D in-plane angle from the (cos, sin) support convention."""
+        top = self.par["topR"]
+        return self._from_plane(torch.atan2(top[..., 1], top[..., 0]))
+
     def _preprocess(self, imgs):
         """Background ring statistics -> zero-mean, unit-std background
         (src/Optimiser.cpp:4608-4720). Returns (images, soft mask)."""
@@ -311,21 +330,31 @@ class Optimiser:
                         keepdim=True) / denom
         return (imgs - mean) / torch.sqrt(torch.clamp(var, min=1e-12)), alpha
 
+    def _ffts(self):
+        """(centered FFT, inverse) of this mode's maps."""
+        if self.dims == 2:
+            return fft_ops.fft2_center, fft_ops.ifft2_center
+        return fft_ops.fft3_center, fft_ops.ifft3_center
+
     def init_reference(self, vol=None):
-        """Provided volume (or a soft sphere), low-passed to the initial
-        resolution, replicated to both halves: refs (2, K, n, n, n)."""
-        n = self.n
+        """Provided volume (image in 2D mode, or a soft sphere / disk),
+        low-passed to the initial resolution, replicated to both halves and
+        all classes: refs (2, K, n, n[, n])."""
+        n, dims = self.n, self.dims
         # the reference re-balances the intensity scale at init only when
         # a model was given (src/Optimiser.cpp:531-539)
         self._init_model_given = vol is not None
         if vol is None:
-            vol = soft_mask_shape((n, n, n), n / 8, n / 8, device=self.device)
+            vol = soft_mask_shape((n,) * dims, n / 8, n / 8,
+                                  device=self.device)
         vol = (vol.to(self.device, real_dtype) if torch.is_tensor(vol)
                else self._t(vol, real_dtype))
-        ft = low_pass_filter(fft_ops.fft3_center(vol), self.ladder.r / n,
-                             3.0 / n, 3)
-        vol = fft_ops.ifft3_center(ft).real
-        self.refs = vol[None, None].repeat(2, self.para.k, 1, 1, 1)
+        fftc, ifftc = self._ffts()
+        ft = low_pass_filter(fftc(vol), self.ladder.r / n, 3.0 / n, dims)
+        vol = ifftc(ft).real
+        # 2D classes start identical and are told apart by the stochastic
+        # class draw of the global scan
+        self.refs = vol[None, None].repeat(2, self.para.k, *(1,) * dims)
 
     def init_sigma(self):
         """Initial per-group noise spectra: shell power / 2."""
@@ -382,6 +411,11 @@ class Optimiser:
         if c is not None and c[0] is self.refs and c[1] == r_band:
             return c[2]
         dt = torch.bfloat16 if self.para.table_bf16 else torch.float32
+        if self.dims == 2:
+            tabs = projector.build_brick_projectee_2d(
+                self.refs, r_band, pf=self.para.pf, dtype=dt)
+            self._brick_cache = (self.refs, r_band, tabs)
+            return tabs
         tabs = torch.stack([torch.stack([
             projector.build_brick_projectee_3d(
                 self.refs[h, k], r_band, pf=self.para.pf, dtype=dt, half=True)
@@ -408,6 +442,8 @@ class Optimiser:
         return dat, c, likelihood.sigma_reciprocal(sig_px)
 
     def _sym_quats(self):
+        if self.dims == 2:
+            return torch.zeros((0, 4), dtype=real_dtype, device=self.device)
         return self._t(self.sym.quat.astype(np.float32)).reshape(-1, 4)
 
     # ------------------------------------------------------------ expectation
@@ -417,13 +453,22 @@ class Optimiser:
         para = self.para
         ring = self._ring()
         col, row, pmask = self._ring_tensors(ring)
-        n_r = sampling.n_scan_rotations(para.m_s, self.sym.n_elements)
+        n_r = sampling.n_scan_rotations(para.m_s, self.sym.n_elements,
+                                        para.mode)
         n_t = sampling.n_scan_translations(para.trans_s,
                                            para.trans_search_factor)
-        rn, tn = self.draws.scan_grid(n_r, n_t)
-        quats = sampling.sample_rotations_3d(
-            rn, self._sym_quats() if self.sym.n_elements else None)
-        rots = quat.rotate3d(quats)
+        if self.dims == 2:
+            un, tn = self.draws.scan_grid_2d(n_r, n_t)
+            phis = sampling.sample_rotations_2d(un)
+            rots = quat.rotate2d(phis)
+            # support convention: (cos phi, sin phi) in the first two slots
+            z = torch.zeros_like(phis)
+            quats = torch.stack([torch.cos(phis), torch.sin(phis), z, z], -1)
+        else:
+            rn, tn = self.draws.scan_grid(n_r, n_t)
+            quats = sampling.sample_rotations_3d(
+                rn, self._sym_quats() if self.sym.n_elements else None)
+            rots = quat.rotate3d(quats)
         trans = sampling.sample_translations(tn, para.trans_s)
         tra = translation_phase(col, row, trans[:, 0], trans[:, 1], self.n)
         bricks = self._bricks()
@@ -433,7 +478,8 @@ class Optimiser:
         st, _ = engine.scan_init(
             bricks, rots, quats, tra, trans, col, row, pmask, dat, c,
             sig_rcp, gumbel, u0_r, u0_t, pf=para.pf, m_l_r=para.m_l_r,
-            m_l_t=para.m_l_t, m_l_d=para.m_l_d, chunk=self._chunk())
+            m_l_t=para.m_l_t, m_l_d=para.m_l_d, chunk=self._chunk(),
+            mode=para.mode)
         for k in ("d", "topD", "sD"):
             st[k] = self.par[k]
         self.par = st
@@ -453,11 +499,11 @@ class Optimiser:
         bricks = self._bricks()
         dat, c, sig_rcp = self._plane_ring_data(ring)
         draw = self.draws.phase_draws(self.iteration, (2, self.s_slots),
-                                      para.m_l_r, para.m_l_t)
+                                      para.m_l_r, para.m_l_t, mode=para.mode)
         st, nph = engine.local_search(
             bricks, col, row, pmask, dat, c, sig_rcp, self.par, draw,
             self._sym_quats(), para.perturb_factor_l, perturb_s,
-            pf=para.pf, n=self.n, min_phase=min_phase)
+            pf=para.pf, n=self.n, min_phase=min_phase, mode=para.mode)
         self.phase_counts = nph
         self.par = st
         self.scores = particle.compress_r(st)
@@ -548,7 +594,13 @@ class Optimiser:
         scale and sigma by its square."""
         if init:
             s2 = self.s_slots
-            rand_q = quat.normalize(self.draws.scale_quats((2, s2)))
+            if self.dims == 2:
+                phis = self.draws.scale_angles((2, s2))
+                z = torch.zeros_like(phis)
+                rand_q = torch.stack([torch.cos(phis), torch.sin(phis), z, z],
+                                     -1)
+            else:
+                rand_q = quat.normalize(self.draws.scale_quats((2, s2)))
             saved = {k: self.par[k] for k in ("topR", "topT")}
             self.par = {**self.par, "topR": rand_q,
                         "topT": torch.zeros((2, s2, 2), dtype=real_dtype,
@@ -632,6 +684,8 @@ class Optimiser:
         """solventFlatten's refAutoRecentre branch (src/Optimiser.cpp:
         7390-7425): translate each reference by -O, the symmetrised
         insert offset, so its density centre returns to the box centre."""
+        if self.dims == 2:  # the JAX package re-centres 3D maps only
+            return
         o = self.insert_offsets                              # (2, K, 3)
         self.refs = torch.stack([torch.stack([
             fft_ops.ifft3_center(translate_ft_3d(
@@ -645,17 +699,62 @@ class Optimiser:
         port yet, so ``use_mask`` finds none and the spherical mask is
         used, as in the JAX package when no mask was set."""
         n = self.n
-        alpha = soft_mask_shape((n, n, n), self.para.mask_radius_px,
+        alpha = soft_mask_shape((n,) * self.dims, self.para.mask_radius_px,
                                 EDGE_WIDTH_RL, device=self.device)
         self.refs = self.refs * alpha
 
+    def refresh_class_distr(self):
+        """Class fractions over the valid images (Optimiser::
+        refreshClassDistr, src/Optimiser.cpp:5484-5517), as NumPy (K,)."""
+        counts = torch.zeros(self.para.k, dtype=torch.float32,
+                             device=self.device).index_add_(
+            0, self.par["c"].long().reshape(-1),
+            self._t(self.plane_valid).reshape(-1)).cpu().numpy()
+        self.c_distr = counts / max(counts.sum(), 1)
+        return self.c_distr
+
+    def balance_class(self, thres=0.05):
+        """OPTIMISER_BALANCE_CLASS after a global round (determineBalance
+        Class/balanceClass, src/Optimiser.cpp:5519-5593): a class holding
+        fewer than thres/K of the images takes the reference of a class
+        drawn in proportion to the excess distribution, its phases
+        randomised past the current band, as the JAX package does (the
+        reference copies it exactly; the random phases let the two classes
+        separate again). The source class is drawn with NumPy from
+        ``seed + iteration``, the phase fields from ``draws``."""
+        para = self.para
+        if para.k == 1:
+            return
+        distr = self.refresh_class_distr()
+        rng = np.random.default_rng(para.seed + self.iteration)
+        excess = np.where(distr < thres / para.k, 0.0,
+                          distr - thres / para.k)
+        if excess.sum() <= 0:
+            return
+        p_src = excess / excess.sum()
+        fftc, ifftc = self._ffts()
+        refs = self.refs
+        for t in range(para.k):
+            if distr[t] < thres / para.k:
+                j = int(rng.choice(para.k, p=p_src))
+                self.log.info("Round %d: class %d empty, resigned from class "
+                              "%d (random-phased past shell %d)",
+                              self.iteration, t, j, self.ladder.r)
+                refs = refs.clone()  # a new tensor: the brick cache keys on it
+                for h in (0, 1):
+                    phi = self.draws.phase_field(tuple(refs.shape[2:]))
+                    refs[h, t] = ifftc(spectrum.random_phase(
+                        fftc(refs[h, j]), self.ladder.r, self.dims, phi)).real
+        self.refs = refs
+
     def _golden_fsc(self, ft_a, ft_b):
         """Golden-standard FSC with the random-phase core-mask correction
-        (Model::compareTwoHemispheres src/Model.cpp:407-546)."""
+        (Model::compareTwoHemispheres src/Model.cpp:407-546); the plain
+        FRC in 2D mode."""
         para = self.para
         n = self.n
-        fsc_u = spectrum.frc_fsc(ft_a, ft_b, n // 2, 3)
-        if not para.core_fsc:
+        fsc_u = spectrum.frc_fsc(ft_a, ft_b, n // 2, self.dims)
+        if not para.core_fsc or self.dims == 2:
             return fsc_u
         alpha = soft_mask_shape((n, n, n), para.mask_radius_px,
                                 EDGE_WIDTH_RL, device=self.device)
@@ -674,24 +773,38 @@ class Optimiser:
 
     def _avg_hemi(self, ft_a, ft_b, band):
         """Average A/B below the FSC >= 0.95 band (Model::avgHemi)."""
-        u = torch.round(fft_ops.radius_grid_3d(ft_a.shape[-1],
-                                               self.device)).long()
+        radius = (fft_ops.radius_grid_2d if self.dims == 2
+                  else fft_ops.radius_grid_3d)
+        u = torch.round(radius(ft_a.shape[-1], self.device)).long()
         mean_ft = (ft_a + ft_b) / 2
         low = u <= band
+        ifftc = self._ffts()[1]
         return torch.stack([
-            fft_ops.ifft3_center(torch.where(low, mean_ft, ft_a)).real,
-            fft_ops.ifft3_center(torch.where(low, mean_ft, ft_b)).real])
+            ifftc(torch.where(low, mean_ft, ft_a)).real,
+            ifftc(torch.where(low, mean_ft, ft_b)).real])
+
+    def insert_mc(self, r_u=None):
+        """Crop size of the insert accumulator for band ``r_u`` (default the
+        ladder's r_u): the table band is r_u bucketed to multiples of 8
+        shells, capped at n // 2 - 2, as in the JAX package."""
+        r_u = self.ladder.r_u if r_u is None else r_u
+        r_tab = min(-(-int(np.ceil(r_u)) // 8) * 8, self.n // 2 - 2)
+        return brick_ops.crop_size(r_tab, self.para.pf)
 
     def reconstruct(self, r_u=None):
-        """Gridding insert (kernel K2) + fold, grid-exact symmetrisation,
-        per-half Wiener/C-balance, golden-standard FSC, hemisphere
-        averaging (Model::compareTwoHemispheres, src/Model.cpp:307-850)."""
+        """Gridding insert + fold, then per class grid-exact
+        symmetrisation, per-half Wiener/C-balance, golden-standard FSC and
+        hemisphere averaging (Model::compareTwoHemispheres,
+        src/Model.cpp:307-850). With K > 1 classes one insert pass fills a
+        K-fold accumulator while it holds at most FUSED_CLASS_BYTES; past
+        that each class is inserted on its own with the other classes'
+        weights zeroed (``insert_fused`` records which)."""
         para = self.para
+        dims, k_cls = self.dims, para.k
         r_u = self.ladder.r_u if r_u is None else r_u
         ring = pixels.pixel_ring(self.n, 0, r_u)
         col, row, pmask = self._ring_tensors(ring)
-        r_tab = min(-(-int(np.ceil(r_u)) // 8) * 8, self.n // 2 - 2)
-        mc = brick_ops.crop_size(r_tab, para.pf)
+        mc = self.insert_mc(r_u)
         dat, c, _ = self._plane_ring_data(ring, ori=True,
                                           refined_defocus=True)
         n_draw = min(para.m_reco, para.m_l_r)
@@ -700,7 +813,7 @@ class Optimiser:
         state = {k: self.par[k] for k in ("r", "t", "c")}
         ri, ti = self.draws.insert(self.iteration, (2, self.s_slots), n_draw,
                                    state["r"].shape[2], state["t"].shape[2])
-        if self.sym.n_elements:
+        if dims == 3 and self.sym.n_elements:
             if not hasattr(self, "_sym_split_cache"):
                 self._sym_split_cache = reconstructor.split_grid_exact(
                     self.sym.rot)
@@ -718,43 +831,62 @@ class Optimiser:
             reco_t[name] += now - t_last
             t_last = now
 
-        f_ht, t_ht, offs = engine.insert_fold_reduce(
-            col, row, pmask, dat, c, state, ri, ti, w_img, self.offsets,
-            pf=para.pf, n=self.n, mc=mc, chunk=self._chunk())
-        if exact_ops or len(gen_rots):
-            f_ht, t_ht = engine.symmetrize_halves(
-                f_ht, t_ht, exact_ops, gen_rots, pf=para.pf,
-                r_u=(mc // 2 - 2) / para.pf)
-        offs_all = offs.cpu().numpy()  # (2, 1, 4)
-        _mark("insert")
+        def insert(k_classes, st, w):
+            return engine.insert_fold_reduce(
+                col, row, pmask, dat, c, st, ri, ti, w, self.offsets,
+                pf=para.pf, n=self.n, mc=mc, chunk=self._chunk(),
+                k_classes=k_classes, mode=para.mode)
+
+        width = 12 if dims == 2 else 24
+        self.insert_fused = (k_cls > 1 and k_cls * mc ** dims * width * 4
+                             <= FUSED_CLASS_BYTES)
+        if self.insert_fused:
+            f_all, t_all, offs_all = insert(k_cls, state, w_img)
         prev_fsc = getattr(self, "fsc", None)
-        fsc_k = (torch.ones(self.n // 2, device=self.device)
-                 if prev_fsc is None else self._t(prev_fsc[0]))
-        wc = getattr(self, "_w_warm", None)
-        warm = wc is not None and wc.shape == t_ht.shape
-        vols2, self._w_warm = engine.reconstruct_halves(
-            f_ht, t_ht, fsc_k, wc if warm else torch.zeros_like(t_ht),
-            float(r_u), pf=para.pf, n=self.n, warm=warm, blob_a=para.a,
-            blob_alpha=para.alpha)
-        ft_a = fft_ops.fft3_center(vols2[0])
-        ft_b = fft_ops.fft3_center(vols2[1])
-        fsc_new = self._golden_fsc(ft_a, ft_b)
-        self.half_maps = [vols2[0], vols2[1]]
-        _mark("wiener_fsc")
-        band = spectrum.res_p(fsc_new, 0.95, r_low=1)
-        new_refs = self._avg_hemi(ft_a, ft_b, band)
-        _mark("avg")
+        warm_w = getattr(self, "_w_warm", None) or {}
+        fftc = self._ffts()[0]
+        self._w_warm, offs, fscs, new_refs, self.half_maps = {}, [], [], [], []
+        for k in range(k_cls):
+            if self.insert_fused:
+                f_ht, t_ht, offs_k = f_all[:, k], t_all[:, k], offs_all[:, k]
+            else:
+                w_k = w_img * (state["c"] == k) if k_cls > 1 else w_img
+                f_ht, t_ht, offs_k = insert(
+                    1, {**state, "c": torch.zeros_like(state["c"])}, w_k)
+                offs_k = offs_k[:, 0]
+            if exact_ops or len(gen_rots):
+                f_ht, t_ht = engine.symmetrize_halves(
+                    f_ht, t_ht, exact_ops, gen_rots, pf=para.pf,
+                    r_u=(mc // 2 - 2) / para.pf)
+            offs.append(offs_k.cpu().numpy())                # (2, 4)
+            _mark("insert")
+            fsc_k = (torch.ones(self.n // 2, device=self.device)
+                     if prev_fsc is None else self._t(prev_fsc[k]))
+            wc = warm_w.get(k)
+            warm = wc is not None and wc.shape == t_ht.shape
+            vols2, self._w_warm[k] = engine.reconstruct_halves(
+                f_ht, t_ht, fsc_k, wc if warm else torch.zeros_like(t_ht),
+                float(r_u), pf=para.pf, n=self.n, warm=warm, blob_a=para.a,
+                blob_alpha=para.alpha, dims=dims)
+            ft_a, ft_b = fftc(vols2[0]), fftc(vols2[1])
+            fsc_new = self._golden_fsc(ft_a, ft_b)
+            fscs.append(fsc_new.cpu().numpy())
+            self.half_maps.append([vols2[0], vols2[1]])
+            _mark("wiener_fsc")
+            band = spectrum.res_p(fsc_new, 0.95, r_low=1)
+            new_refs.append(self._avg_hemi(ft_a, ft_b, band))
+            _mark("avg")
         self.reco_timing = reco_t
-        self._update_insert_offsets(offs_all)
-        self.fsc = fsc_new.cpu().numpy()[None]  # (K, shells)
-        self.refs = new_refs[:, None]           # (2, K, n, n, n)
+        self._update_insert_offsets(np.stack(offs, axis=1))  # (2, K, 4)
+        self.fsc = np.stack(fscs)                            # (K, shells)
+        self.refs = torch.stack(new_refs, dim=1)             # (2, K, ...)
 
     def _update_insert_offsets(self, offs):
         """prepareO (src/Reconstructor.cpp:1106-1128): symmetrise the
         re-centring accumulator and divide by its counter. offs (2, K, 4)."""
         o = offs[..., :3].astype(np.float64)
         cnt = offs[..., 3:4].astype(np.float64)
-        if self.sym.n_elements:
+        if self.dims == 3 and self.sym.n_elements:
             acc = o.copy()
             for g in range(self.sym.n_elements):
                 acc = acc + o @ np.asarray(self.sym.rot[g], np.float64).T
@@ -819,7 +951,9 @@ class Optimiser:
                 timing[f"reco_{kk}"] = round(vv, 3)
             self._check_nan("reconstruction", {"refs": self.refs,
                                                "fsc": self.fsc})
-        if not is_global:
+            if is_global:
+                self.balance_class()
+        if not is_global and self.dims == 3:
             self.re_centre_img()
             self.re_mask_img()
         if not para.skip_r:
@@ -830,8 +964,9 @@ class Optimiser:
             else:
                 self.solvent_flatten(para.perform_mask)
         has_fsc = hasattr(self, "fsc")
-        res = (spectrum.res_p(torch.as_tensor(self.fsc[0]),
-                              para.thres_cutoff_fsc, r_low=1)
+        # the ladder follows the best class's FSC crossing
+        res = (max(spectrum.res_p(torch.as_tensor(f), para.thres_cutoff_fsc,
+                                  r_low=1) for f in self.fsc)
                if has_fsc else self.ladder.res)
         if has_fsc:
             self.refresh_snr()
@@ -852,7 +987,8 @@ class Optimiser:
             "iter": self.iteration, "r": self.ladder.r, "res_shell": res,
             "res_a": float(self.n * para.pixel_size / max(res, 1)),
             "search_type": st, "t_vari": (tv0, tv1),
-            "r_change": (rc_mean, rc_std), "class_distr": None,
+            "r_change": (rc_mean, rc_std),
+            "class_distr": getattr(self, "c_distr", None),
             "scale": self.scale.tolist() if self.n_groups > 1 else None,
             "timing": timing,
             "n_phase": None if nph is None else nph_stats,
@@ -900,17 +1036,20 @@ class Optimiser:
         return self.r_change_stats
 
     def refresh_snr(self):
-        """Model::refreshSNR / refreshTau: SNR = FSC / (1 - FSC); tau =
-        reference shell power / 2 on the pf-padded frequency axis."""
+        """Model::refreshSNR / refreshTau: per-class SNR = FSC / (1 - FSC);
+        tau = reference shell power / 2 on the pf-padded frequency axis."""
         para = self.para
         fsc = np.asarray(self.fsc, np.float64)
         self.snr = fsc / np.maximum(1.0 - fsc, 1e-6)
         n_sh = (self.n // 2) * para.pf
-        idx = torch.clamp(torch.round(fft_ops.radius_grid_3d(
-            self.n, self.device) * para.pf).long(), max=n_sh).reshape(-1)
+        radius = (fft_ops.radius_grid_2d if self.dims == 2
+                  else fft_ops.radius_grid_3d)
+        idx = torch.clamp(torch.round(radius(self.n, self.device)
+                                      * para.pf).long(), max=n_sh).reshape(-1)
+        fftc = self._ffts()[0]
         taus = []
         for k in range(para.k):
-            ft = fft_ops.fft3_center((self.refs[0, k] + self.refs[1, k]) / 2)
+            ft = fftc((self.refs[0, k] + self.refs[1, k]) / 2)
             p2 = (ft.real ** 2 + ft.imag ** 2).reshape(-1)
             s = torch.zeros(n_sh + 1, device=self.device).index_add_(
                 0, idx, p2)

@@ -1,19 +1,26 @@
-"""The particle filter over (class, rotation, translation), 3D path
-(port of ``thunder_tpu.core.particle``; include/Particle.h,
-src/Particle.cpp, the phase rule of src/Optimiser.cpp:1510-1614).
+"""The particle filter over (class, rotation, translation) (port of
+``thunder_tpu.core.particle``; include/Particle.h, src/Particle.cpp, the
+phase rule of src/Optimiser.cpp:1510-1614).
 
 Every operation is batched over leading image dims. Where the JAX function
 draws from per-image keys, the port takes the draws as tensors:
 standard normals for perturbations, one uniform u0 per image for each
 systematic resample, an anchor index per image for the symmetrised
-variance, Gumbel noise for the class draw.
+variance, Gumbel noise for the class draw, and in 2D mode the von Mises
+sampler's uniforms.
+
+2D mode (``mode="2d"``) keeps an in-plane angle phi as (cos phi, sin phi,
+0, 0) in the quaternion slots: rotations are perturbed by von Mises angle
+increments (Particle.cpp:1160-1178) and k1 = k2 = k3 = 1 - R of the
+support's mean resultant (:1014).
 """
 
 import torch
 
 from ..dtypes import real_dtype
 from ..geom import quat
-from ..geom.directional import acg_mean, infer_acg, sample_acg_k123
+from ..geom.directional import (acg_mean, infer_acg, sample_acg_k123,
+                                sample_vms)
 from ..geom.symmetry import symmetry_counterpart
 
 # include/Particle.h:52-64, include/Optimiser.h:56-63
@@ -96,8 +103,8 @@ def cal_peak_factor(u, idx):
     return torch.clamp(ratio, PEAK_FACTOR_MIN, PEAK_FACTOR_MAX)
 
 
-def peak_idx_r(n_r):
-    return n_r // PEAK_FACTOR_BASE ** 3
+def peak_idx_r(n_r, mode="3d"):
+    return n_r // 2 if mode == "2d" else n_r // PEAK_FACTOR_BASE ** 3
 
 
 def peak_idx_t(n_t):
@@ -128,6 +135,13 @@ def cal_vari_r(r, anchor_idx=None, sym_quats=None):
     return a2[..., 1, 1] / d0, a2[..., 2, 2] / d0, a2[..., 3, 3] / d0, r
 
 
+def cal_vari_r_2d(r):
+    """2D rotation concentration: k1 = 1 - |resultant| of the (cos, sin)
+    support vectors (..., nR, 4) (inferVMS, DirectionalStat.cpp:334-357)."""
+    m = torch.mean(r[..., :2], dim=-2)
+    return torch.clamp(1.0 - torch.linalg.vector_norm(m, dim=-1), 1e-6, 1.0)
+
+
 def cal_vari_t(t):
     """(s0, s1): per-axis population stddev of the translation support."""
     s = torch.std(t, dim=-2, correction=0)
@@ -149,6 +163,20 @@ def perturb_r(r, k1, k2, k3, pf, normals, sym_quats=None):
     return out
 
 
+def perturb_r_2d(r, k1, pf, vms):
+    """2D: in-plane angle increments ~ VMS(min(1, k1 pf)) composed onto
+    the (cos, sin) support vectors (..., nR, 4) by complex multiplication
+    (Particle.cpp:1160-1178). ``vms`` holds ``sample_vms``'s uniforms for
+    each image: u_z, u_2 (..., ROUNDS, nR), u_s, theta (..., nR)."""
+    kk = torch.clamp(k1 * pf, max=PERTURB_K_MAX)
+    mu = torch.tensor([1.0, 0.0], dtype=r.dtype, device=r.device)
+    d = sample_vms(mu, kk, vms["u_z"], vms["u_2"], vms["u_s"], vms["theta"])
+    c, s = r[..., 0], r[..., 1]
+    dc, ds = d[..., 0], d[..., 1]
+    out = torch.stack([c * dc - s * ds, c * ds + s * dc], dim=-1)
+    return torch.cat([out, torch.zeros_like(out)], dim=-1)
+
+
 def perturb_t(t, s0, s1, pf, normals):
     """t + normals * (s0, s1) * pf; normals (..., nT, 2)."""
     s = torch.stack([s0, s1], dim=-1)[..., None, :]
@@ -156,11 +184,12 @@ def perturb_t(t, s0, s1, pf, normals):
 
 
 def update_from_likelihood(state, u_r, u_t, u0_r, u0_t, anchor_idx,
-                           sym_quats=None):
+                           sym_quats=None, mode="3d"):
     """One phase's posterior update (src/Optimiser.cpp:1404-1496):
     peak-clip with the per-image factors, rank-1st, symmetrised variance
     of the CURRENT support, systematic resample back to the support sizes.
-    u0_r/u0_t: (...,) resample uniforms; anchor_idx: (...,) support index.
+    u0_r/u0_t: (...,) resample uniforms; anchor_idx: (...,) support index
+    (unused in 2D mode).
     """
     n_r = state["r"].shape[-2]
     n_t = state["t"].shape[-2]
@@ -168,7 +197,11 @@ def update_from_likelihood(state, u_r, u_t, u0_r, u0_t, anchor_idx,
     u_t = keep_half_height_peak(u_t, state["pfT"][..., None])
     top_r = _take(state["r"], torch.argmax(u_r, dim=-1)[..., None])[..., 0, :]
     top_t = _take(state["t"], torch.argmax(u_t, dim=-1)[..., None])[..., 0, :]
-    k1, k2, k3, r_v = cal_vari_r(state["r"], anchor_idx, sym_quats)
+    if mode == "2d":
+        k1 = cal_vari_r_2d(state["r"])
+        k2, k3, r_v = k1, k1, state["r"]
+    else:
+        k1, k2, k3, r_v = cal_vari_r(state["r"], anchor_idx, sym_quats)
     s0, s1 = cal_vari_t(state["t"])
     r_new = systematic_resample(state["wR"] * u_r, r_v, n_r, u0_r)
     t_new = systematic_resample(state["wT"] * u_t, state["t"], n_t, u0_t)
@@ -182,14 +215,17 @@ def update_from_likelihood(state, u_r, u_t, u0_r, u0_t, anchor_idx,
     }
 
 
-def vari_shrank(state, prev):
-    """Did any variance shrink below the decrease factor (3D rule: the
-    rotation concentrations against the squared factor)?"""
+def vari_shrank(state, prev, mode="3d"):
+    """Did any variance shrink below the decrease factor? 3D compares the
+    rotation concentrations against the squared factor, 2D k1 linearly."""
     f = PARTICLE_FILTER_DECREASE_FACTOR
+    trans = ((state["s0"] < prev["s0"] * f) | (state["s1"] < prev["s1"] * f)
+             | (state["sD"] < prev["sD"] * f))
+    if mode == "2d":
+        return (state["k1"] < prev["k1"] * f) | trans
     f2 = f * f
     return ((state["k1"] < prev["k1"] * f2) | (state["k2"] < prev["k2"] * f2)
-            | (state["k3"] < prev["k3"] * f2) | (state["s0"] < prev["s0"] * f)
-            | (state["s1"] < prev["s1"] * f) | (state["sD"] < prev["sD"] * f))
+            | (state["k3"] < prev["k3"] * f2) | trans)
 
 
 def compress_r(state):
@@ -199,7 +235,7 @@ def compress_r(state):
 
 
 def init_from_scan(w_c, w_r, w_t, scan_quats, scan_trans, n_r, n_t, n_d,
-                   gumbel, u0_r, u0_t):
+                   gumbel, u0_r, u0_t, mode="3d"):
     """Seed each image's filter from the global-scan marginals
     (src/Optimiser.cpp:925-1118): draw the class from the peak-clipped
     class posterior (Gumbel-max with ``gumbel`` (B, K)), set the adaptive
@@ -214,7 +250,7 @@ def init_from_scan(w_c, w_r, w_t, scan_quats, scan_trans, n_r, n_t, n_d,
     cls = torch.argmax(gumbel + logits, dim=-1)
     u_r = _take(w_r, cls[:, None])[:, 0]  # (B, R)
     u_t = _take(w_t, cls[:, None])[:, 0]  # (B, T)
-    pf_r = cal_peak_factor(u_r, peak_idx_r(u_r.shape[-1]))
+    pf_r = cal_peak_factor(u_r, peak_idx_r(u_r.shape[-1], mode))
     pf_t = cal_peak_factor(u_t, peak_idx_t(u_t.shape[-1]))
     u_r = keep_half_height_peak(u_r, pf_r[:, None])
     u_t = keep_half_height_peak(u_t, pf_t[:, None])
@@ -225,8 +261,13 @@ def init_from_scan(w_c, w_r, w_t, scan_quats, scan_trans, n_r, n_t, n_d,
     state = make_state((b,), n_r, n_t, n_d, device=dev)
     top_r = _take(r_pts, torch.argmax(u_r, dim=-1)[:, None])[:, 0]
     top_t = _take(t_pts, torch.argmax(u_t, dim=-1)[:, None])[:, 0]
-    k1, k2, k3, _ = cal_vari_r(r_new)
-    min_k = float(scan_quats.shape[0]) ** (-2.0 / 3)
+    if mode == "2d":
+        k1 = cal_vari_r_2d(r_new)
+        k2 = k3 = k1
+        min_k = 1.0 / scan_quats.shape[0]
+    else:
+        k1, k2, k3, _ = cal_vari_r(r_new)
+        min_k = float(scan_quats.shape[0]) ** (-2.0 / 3)
     s0, s1 = cal_vari_t(t_new)
     return {
         **state,

@@ -1,12 +1,14 @@
-"""Fourier-slice projection (port of the 3D path of
-``thunder_tpu.core.projector``; src/Projector.cpp:97-356).
+"""Fourier-slice projection (port of ``thunder_tpu.core.projector``;
+src/Projector.cpp:97-356).
 
 - ``build_projectee_3d``: zero-pad the real-space volume by pf, divide by
   the trilinear grid-correction taper, centered FFT;
 - ``build_brick_projectee_3d``: crop that spectrum to the band and pack it
   into the brick gather table (Hermitian half-space with ``half=True``);
 - ``project_brick_3d``: one row fetch + 8-wide dot per sample;
-- ``project_full_3d``: full n x n central slices (data synthesis, tools).
+- ``project_full_3d``: full n x n central slices (data synthesis, tools);
+- the 2D counterparts of the first three (2D classification: a class
+  average is rotated in plane, ``slice_coords_2d``).
 
 Outputs are in IMAGE frequency units (cycles per n-box).
 """
@@ -14,26 +16,27 @@ Outputs are in IMAGE frequency units (cycles per n-box).
 import torch
 
 from ..ops import brick
-from ..ops.fft import fft3_center
+from ..ops.fft import fft2_center, fft3_center
 from ..ops.kernels import tik_rl
 
 
-def _pad_rl(vol, pf):
-    """Zero-pad the last 3 axes to pf x n, object centre at (pf n)//2."""
+def _pad_rl(vol, pf, dims=3):
+    """Zero-pad the last ``dims`` axes to pf x n, object centre at
+    (pf n)//2; leading (class) axes are untouched."""
     n = vol.shape[-1]
     m = n * pf
     lo = m // 2 - n // 2
     hi = m - n - lo
-    return torch.nn.functional.pad(vol, (lo, hi, lo, hi, lo, hi))
+    return torch.nn.functional.pad(vol, (lo, hi) * dims)
 
 
-def _grid_correct_rl(vol):
+def _grid_correct_rl(vol, dims=3):
     n_pad = vol.shape[-1]
     r2 = 0
-    for ax in range(3):
+    for ax in range(dims):
         f = torch.arange(n_pad, dtype=torch.float32, device=vol.device) \
             - n_pad // 2
-        s = [1, 1, 1]
+        s = [1] * dims
         s[ax] = n_pad
         r2 = r2 + f.reshape(s) ** 2
     return vol / tik_rl(torch.sqrt(r2) / n_pad)
@@ -57,6 +60,38 @@ def build_brick_projectee_3d(vol_rl, r_max, pf=2, grid_correct=True,
     if half:
         return brick.pack_vol3_half(crop, dtype=dtype)
     return brick.pack_vol3(crop, dtype=dtype)
+
+
+def build_projectee_2d(img_rl, pf=2, grid_correct=True):
+    """Real-space images (..., n, n) -> padded centered spectra."""
+    padded = _pad_rl(img_rl, pf, dims=2)
+    if grid_correct:
+        padded = _grid_correct_rl(padded, dims=2)
+    return fft2_center(padded)
+
+
+def build_brick_projectee_2d(img_rl, r_max, pf=2, grid_correct=True,
+                             dtype=torch.float32):
+    """Real-space images (..., n, n) -> band-cropped bilinear brick tables
+    (..., mc, mc, C) covering |k| <= r_max * pf."""
+    ft = build_projectee_2d(img_rl, pf=pf, grid_correct=grid_correct)
+    mc = brick.crop_size(r_max, pf)
+    lo = ft.shape[-1] // 2 - mc // 2
+    return brick.pack_vol2(ft[..., lo:lo + mc, lo:lo + mc], dtype=dtype)
+
+
+def slice_coords_2d(rot, col, row, pf=2):
+    """In-plane rotated ring coordinates in array (y, x) order.
+    rot: (..., 2, 2); col/row: (P,) -> (..., P, 2) float32."""
+    plane = torch.stack([col.float() * pf, row.float() * pf], dim=-1)
+    coords = torch.einsum("...ij,pj->...pi", rot.float(), plane)
+    return torch.flip(coords, dims=(-1,))
+
+
+def project_brick_2d(tab, rot, col, row, pf=2):
+    """Ring pixels of a class average rotated in plane, through its
+    ``build_brick_projectee_2d`` table."""
+    return brick.gather_vol2(tab, slice_coords_2d(rot, col, row, pf=pf))
 
 
 def slice_coords_3d(rot, col, row, pf=2):

@@ -7,7 +7,8 @@ normalise F and T by T's DC; Wiener MAP T /= clamp(FSC, 1e-3, 1-1e-3) for
 shells in [5 pf, maxR pf); C-balance W <- W / |FT(IFT(T W) taper)| until
 max||C|-1| < 1e-2 or no decrease (<= 30 iterations); F *= W; zero-embed
 into the padded grid, inverse FFT, extract the n-box, divide by the
-trilinear grid-correction profile.
+trilinear grid-correction profile. ``dims = 2`` runs the same contract on
+2D class averages (2D classification).
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from ..dtypes import complex_dtype, real_dtype
 from ..ops import brick
-from ..ops.fft import fft3_center, ifft3_center
+from ..ops.fft import fft2_center, fft3_center, ifft2_center, ifft3_center
 from ..ops.kernels import mkb_rl, tik_rl
 
 # include/Reconstructor.h:61-75
@@ -91,20 +92,23 @@ def symmetrize_exact(f, t, exact_ops, max_radius, pf=2):
 def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
                         grid_corr=True, map_wiener=True, join_half=False,
                         blob_a=DEFAULT_BLOB_A, blob_alpha=DEFAULT_BLOB_ALPHA,
-                        w_init=None, return_w=False):
-    """Band-cropped (F, T) (mc, mc, mc) + per-shell FSC -> real n-box map
-    (and the converged C-balance weights when ``return_w``). 3D trilinear
-    insert only. ``w_init`` warm-starts the C-balance iteration."""
+                        w_init=None, return_w=False, dims=3):
+    """Band-cropped (F, T) (mc,)*dims + per-shell FSC -> real n-box map (or
+    image for ``dims = 2``), and the converged C-balance weights when
+    ``return_w``. Trilinear (bilinear) insert only. ``w_init`` warm-starts
+    the C-balance iteration."""
     if max_radius is None:
         max_radius = size // 2 - 2
     max_radius = float(max_radius)
     dev = f.device
     mc = f.shape[-1]
     m = size * pf
-    r2 = _radius_sq_grid(mc, 3, dev)
+    fftc = fft3_center if dims == 3 else fft2_center
+    ifftc = ifft3_center if dims == 3 else ifft2_center
+    r2 = _radius_sq_grid(mc, dims, dev)
     in_rad = r2 < (max_radius * pf) ** 2
 
-    dc = t[(mc // 2,) * 3]
+    dc = t[(mc // 2,) * dims]
     sf = 1.0 / torch.clamp(dc, min=1e-30)
     f = f * sf
     t = t * sf
@@ -131,7 +135,7 @@ def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
 
     if grid_corr:
         taper_a = blob_a * pf
-        taper_r = torch.sqrt(_radius_sq_grid(mc, 3, dev)) / mc
+        taper_r = torch.sqrt(_radius_sq_grid(mc, dims, dev)) / mc
         nf = mkb_rl(torch.zeros((), device=dev), taper_a, blob_alpha)
         taper = (mkb_rl(taper_r, taper_a, blob_alpha) / nf).to(real_dtype)
         big = float(np.finfo(np.float32).max)
@@ -144,7 +148,7 @@ def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
                     or n_no_dec < N_DIFF_C_NO_DECREASE)):
                 break
             c = (t * w).to(complex_dtype)
-            c = fft3_center(ifft3_center(c) * taper)
+            c = fftc(ifftc(c) * taper)
             c_abs = torch.abs(c)
             w = torch.where(in_rad, w / torch.clamp(c_abs, min=1e-6), w)
             new_diff = float(torch.amax(torch.where(
@@ -159,9 +163,9 @@ def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
 
     fw = torch.where(in_rad, f * w, torch.zeros((), dtype=f.dtype,
                                                  device=dev))
-    pad_rl = ifft3_center(brick.embed_center_ft(fw, m)).real
+    pad_rl = ifftc(brick.embed_center_ft(fw, m)).real
     lo = m // 2 - size // 2
-    out = pad_rl[lo:lo + size, lo:lo + size, lo:lo + size]
-    r_rl = torch.sqrt(_radius_sq_grid(size, 3, dev)) / (pf * size)
+    out = pad_rl[(slice(lo, lo + size),) * dims]
+    r_rl = torch.sqrt(_radius_sq_grid(size, dims, dev)) / (pf * size)
     out = out / tik_rl(r_rl)
     return (out, w) if return_w else out

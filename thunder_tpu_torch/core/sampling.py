@@ -1,7 +1,7 @@
 """Pose sampling for the global scan (port of ``thunder_tpu.core.
 sampling``; Particle::reset src/Particle.cpp:87-170 and the scan counts of
-Optimiser::expectation src/Optimiser.cpp:645-665). Random normals are
-drawn by the caller."""
+Optimiser::expectation src/Optimiser.cpp:645-665). Random normals and
+uniforms are drawn by the caller."""
 
 import math
 
@@ -29,6 +29,13 @@ def sample_rotations_3d(normals, sym_quats=None):
     if sym_quats is not None and sym_quats.shape[0] > 0:
         q = symmetry_counterpart(q, sym_quats.to(q.dtype))
     return q
+
+
+def sample_rotations_2d(u):
+    """Uniform in-plane angles (n,) radians from (n,) uniforms in [0, 1)
+    (``thunder_tpu.core.sampling.sample_rotations_2d`` draws
+    ``jax.random.uniform(key, (n,), 0, 2 pi)``, the same product)."""
+    return u * (2 * math.pi)
 
 
 def sample_translations(normals, trans_s):

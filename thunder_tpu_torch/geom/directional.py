@@ -1,15 +1,22 @@
-"""Angular Central Gaussian (ACG) statistics over unit quaternions.
+"""Directional statistics of the particle filter (port of
+``thunder_tpu.geom.directional``; src/Geometry/DirectionalStat.cpp),
+batched over leading dims:
 
-Port of the parts of ``thunder_tpu.geom.directional`` that the 3D particle
-filter uses (src/Geometry/DirectionalStat.cpp): ``sample_acg`` maps
-caller-drawn 4D normals through chol(Sigma), ``infer_acg`` is the weighted
-Tyler fixed-point iteration with a fixed iteration count, batched over
-leading dims.
+- Angular Central Gaussian (ACG) over unit quaternions (3D rotations):
+  ``sample_acg`` maps caller-drawn 4D normals through chol(Sigma),
+  ``infer_acg`` is the weighted Tyler fixed-point iteration with a fixed
+  iteration count;
+- von Mises (VMS) on the circle (2D in-plane rotations): ``sample_vms`` is
+  the Best-Fisher sampler as VMS_PROPOSAL_ROUNDS fixed proposal rounds on
+  caller-drawn uniforms, ``infer_vms`` the mean-resultant inference.
 """
+
+import math
 
 import torch
 
 ACG_FIXED_POINT_ITERS = 30
+VMS_PROPOSAL_ROUNDS = 8
 
 
 def sample_acg(sig, normals):
@@ -78,3 +85,73 @@ def bessel_i0(x):
             0.02635537 + it * (-0.01647633 + it * 0.00392377)))))))
     big = torch.exp(ax) / torch.sqrt(torch.clamp(ax, min=1e-30)) * poly
     return torch.where(ax < 3.75, small, big)
+
+
+def _vms_kappa(k):
+    """The reference's VMS concentration from its k in (0, 1]."""
+    k = torch.clamp(k, 1e-6, 1.0)
+    return (1 - k) * (1 + 2 * k - k ** 2) / (k * (2 - k))
+
+
+def pdf_vms(x, mu, k):
+    """VMS pdf on the circle, with the Gaussian tail approximation above
+    kappa = 5 (DirectionalStat.cpp:252-262). x, mu: (..., 2); k: (...,)."""
+    kappa = _vms_kappa(k)
+    dot = torch.sum(x * mu, dim=-1)
+    small = torch.exp(kappa * dot) / (2 * math.pi * bessel_i0(kappa))
+    d = torch.linalg.vector_norm(x - mu, dim=-1)
+    s = torch.sqrt(1.0 / kappa)
+    big = torch.exp(-0.5 * (d / s) ** 2) / (s * math.sqrt(2 * math.pi))
+    return torch.where(kappa < 5, small, big)
+
+
+def sample_vms(mu, k, u_z, u_2, u_s, theta):
+    """n unit 2-vectors from VMS(mu, k) with the reference's
+    parameterisation (DirectionalStat.cpp:264-332).
+
+    mu: (..., 2) or (2,); k: (...,). The uniforms come from the caller, as
+    ``thunder_tpu.geom.directional.sample_vms`` draws them: u_z
+    (..., ROUNDS, n) in [0, 1) for the proposals, u_2 (..., ROUNDS, n) in
+    [1e-12, 1) for the acceptance tests, u_s (..., n) in [0, 1) for the
+    sign, theta (..., n) in [0, 2 pi) for the uniform case kappa < 0.1.
+    The first accepted proposal is kept, the last one where none is.
+    Returns (..., n, 2)."""
+    kappa = _vms_kappa(k)[..., None, None]                 # (..., 1, 1)
+    a = 1 + torch.sqrt(1 + 4 * kappa ** 2)
+    b = (a - torch.sqrt(2 * a)) / (2 * kappa)
+    r = (1 + b ** 2) / (2 * b)
+    z = torch.cos(math.pi * u_z)
+    f = (1 + r * z) / (r + z)
+    c = kappa * (r - f)
+    accept = (c * (2 - c) > u_2) | (torch.log(c / u_2) + 1 - c >= 0)
+    idx = torch.argmax(accept.to(torch.int32), dim=-2)     # first accepted
+    idx = torch.where(accept.any(dim=-2), idx,
+                      torch.full_like(idx, VMS_PROPOSAL_ROUNDS - 1))
+    f = torch.gather(f, -2, idx[..., None, :])[..., 0, :]  # (..., n)
+    delta = torch.sqrt(torch.clamp((1 - f) * (f + 1), min=0.0))
+    sign = torch.where(u_s > 0.5, 1.0, -1.0)
+    mu0, mu1 = mu[..., 0:1], mu[..., 1:2]
+    vm = torch.stack([mu0 * f + sign * delta * mu1,
+                      mu1 * f - sign * delta * mu0], dim=-1)
+    uni = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+    return torch.where(kappa[..., 0, :, None] < 1e-1, uni, vm)
+
+
+def sample_vms_quat(mu4, k, u_z, u_2, u_s, theta):
+    """2D-mode variant: the rotation lives in the first two quaternion
+    slots (DirectionalStat.cpp:320-332). Returns (..., n, 4)."""
+    v = sample_vms(mu4[..., :2], k, u_z, u_2, u_s, theta)
+    return torch.cat([v, torch.zeros_like(v)], dim=-1)
+
+
+def infer_vms(x, w=None):
+    """Weighted mean-resultant inference: mu = normalised weighted mean,
+    k = 1 - R (DirectionalStat.cpp:334-357). x: (..., n, 2); w (..., n).
+    Returns (mu (..., 2), k (...,))."""
+    if w is None:
+        w = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-30)
+    m = torch.einsum("...n,...ni->...i", w, x)
+    big_r = torch.linalg.vector_norm(m, dim=-1)
+    mu = m / torch.clamp(big_r, min=1e-30)[..., None]
+    return mu, 1 - big_r

@@ -55,3 +55,15 @@ def random_quat(normals):
     caller draws them (``thunder_tpu.geom.quat.random_quat`` draws
     ``jax.random.normal(key, (n, 4))`` and normalises the same way)."""
     return normalize(normals)
+
+
+def rotate2d(phi):
+    """Angle(s) (...,) -> 2x2 rotation matrix (..., 2, 2)."""
+    c, s = torch.cos(phi), torch.sin(phi)
+    return torch.stack([c, -s, s, c], dim=-1).reshape(phi.shape + (2, 2))
+
+
+def rotate2d_vec(v):
+    """Unit 2-vector(s) (..., 2) = (cos, sin) -> 2x2 rotation matrix."""
+    c, s = v[..., 0], v[..., 1]
+    return torch.stack([c, -s, s, c], dim=-1).reshape(v.shape[:-1] + (2, 2))

@@ -1,4 +1,4 @@
-"""Brick-packed spectral volumes (port of the 3D path of
+"""Brick-packed spectral volumes and images (port of
 ``thunder_tpu.ops.brick``).
 
 Every 2x2x2 trilinear neighbourhood ("brick") of a band-cropped centered
@@ -10,6 +10,11 @@ linearity); crop sizes are odd so reflect() is an axis flip.
 
 Coordinates are SIGNED centered units in array order (z, y, x); voxel index
 = coord + mc//2. Corner order inside a row is (dz, dy, dx) binary.
+
+The 2D counterparts (2D classification) pack the 2x2 bilinear
+neighbourhood of a centered image spectrum: 8 f32 channels (or 4 packed
+bf16 pairs) per gather row, a width-12 [F.re x 4, F.im x 4, T x 4]
+insert row, corner order (dy, dx) binary.
 """
 
 import torch
@@ -158,4 +163,94 @@ def fold_insert3_lane(tab_lane, mc, hermitian=True):
     if hermitian:
         f = f + torch.conj(torch.flip(f, dims=(0, 1, 2)))
         tt = tt + torch.flip(tt, dims=(0, 1, 2))
+    return f, tt
+
+
+# --------------------------------------------------------------------- 2D
+
+def _corners2(coords, mc):
+    """Bilinear corners of centered (y, x) coordinates (..., 2): (idx into
+    the flat (mc^2, C) table, w4 (..., 4), valid)."""
+    base = torch.floor(coords)
+    frac = (coords - base).float()
+    bi = base.to(torch.int64) + mc // 2
+    idx = bi[..., 0] * mc + bi[..., 1]
+    valid = torch.all((bi >= 0) & (bi < mc - 1), dim=-1)
+    fy, fx = frac[..., 0], frac[..., 1]
+    wy = torch.stack([1 - fy, fy], -1)
+    wx = torch.stack([1 - fx, fx], -1)
+    w4 = (wy[..., :, None] * wx[..., None, :]).reshape(
+        coords.shape[:-1] + (4,))
+    return idx, w4, valid
+
+
+def pack_vol2(img_ft, dtype=torch.float32):
+    """Centered cropped spectra (..., mc, mc) -> (..., mc, mc, 8) f32 rows
+    [re(corner 0..3), im(corner 0..3)], or (..., mc, mc, 4) packed bf16
+    pairs for ``dtype=bfloat16``."""
+    mc = img_ft.shape[-1]
+    vp = torch.nn.functional.pad(img_ft, (0, 1, 0, 1))
+    st = torch.stack([vp[..., dy:dy + mc, dx:dx + mc]
+                      for dy in (0, 1) for dx in (0, 1)], -1)
+    if dtype == torch.bfloat16:
+        pairs = torch.stack([st.real.to(torch.bfloat16),
+                             st.imag.to(torch.bfloat16)], -1).contiguous()
+        return pairs.view(torch.float32)[..., 0]
+    return torch.cat([st.real.to(dtype), st.imag.to(dtype)], -1)
+
+
+def gather_vol2(tab, coords):
+    """Bilinear complex gather from a ``pack_vol2`` table (mc, mc, C);
+    coords (..., 2) centered (y, x) -> (...,) complex64."""
+    mc = tab.shape[0]
+    idx, w4, valid = _corners2(coords, mc)
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    rows = tab.reshape(mc * mc, tab.shape[-1])[idx.reshape(-1)]
+    re, im = interp_rows(rows.reshape(idx.shape + (tab.shape[-1],)), w4,
+                         n_corner=4)
+    out = torch.complex(re, im)
+    return torch.where(valid, out, torch.zeros_like(out))
+
+
+def empty_insert2(mc, device=None):
+    """A zeroed (mc^2 + 1, 12) 2D insert accumulator; the last row is the
+    drop row of out-of-band samples."""
+    return torch.zeros((mc * mc + 1, 12), dtype=torch.float32, device=device)
+
+
+def insert2(tab, coords, fv, tv, w=None):
+    """Add bilinear width-12 rows into a (mc^2 + 1, 12) accumulator in
+    place (``index_add_``; the JAX package's XLA row scatter). coords
+    (..., 2); fv complex (...,); tv (...,); optional w (...,) weights."""
+    mc = round((tab.shape[0] - 1) ** 0.5)
+    idx, w4, valid = _corners2(coords, mc)
+    idx = torch.where(valid, idx, torch.full_like(idx, mc * mc))
+    if w is not None:
+        w4 = w4 * w[..., None]
+    contrib = torch.cat([fv.real[..., None] * w4, fv.imag[..., None] * w4,
+                         tv[..., None] * w4], -1)
+    return tab.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 12))
+
+
+def fold_insert2(tab, hermitian=True):
+    """Fold a (mc^2 + 1, 12) accumulator (the last row dropped) back to
+    pixels with the deferred Hermitian mirror: (F (mc, mc) complex64,
+    T (mc, mc) float32)."""
+    mc = round((tab.shape[0] - 1) ** 0.5)
+    bt = tab[:-1].reshape(mc, mc, 12)
+    fr = torch.zeros((mc, mc), dtype=torch.float32, device=tab.device)
+    fi = torch.zeros_like(fr)
+    tt = torch.zeros_like(fr)
+    s = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            blk = bt[:mc - dy, :mc - dx]
+            fr[dy:, dx:] += blk[..., s]
+            fi[dy:, dx:] += blk[..., 4 + s]
+            tt[dy:, dx:] += blk[..., 8 + s]
+            s += 1
+    f = torch.complex(fr, fi)
+    if hermitian:
+        f = f + torch.conj(torch.flip(f, dims=(0, 1)))
+        tt = tt + torch.flip(tt, dims=(0, 1))
     return f, tt

@@ -5,8 +5,9 @@ The JAX engine runs each stage as a ``shard_map`` over a (half, data)
 mesh. On one GPU the half axis is a leading dimension of size 2 of every
 per-image tensor — (2, S, ...), plane 0 = hemisphere A, plane 1 = B — and
 the data-axis ``psum`` disappears. Brick tables arrive as one (2, K, hz,
-mc, mc, C) stack of Hermitian half-space tables; an image's class and
-half select its table inside one fused row gather.
+mc, mc, C) stack of Hermitian half-space tables (3D) or (2, K, mc, mc, C)
+bilinear tables (2D classification); an image's class and half select its
+table inside one fused row gather.
 
 Random draws are tensors passed in by the caller (the optimiser draws them
 from a ``torch.Generator``; the parity tests replay ``jax.random``):
@@ -15,15 +16,20 @@ from a ``torch.Generator``; the parity tests replay ``jax.random``):
 - ``local_search``: a callable ``phase -> dict`` of per-phase draws,
 - ``insert_fold_reduce``: support indices ri/ti (2, S, n_draw).
 
-Each insert adds an image's DC draws to the centre row once, as their sum
+With K > 1 classes the insert is class-fused: every sample's row is offset
+by ``cls * n_vox`` into one (K n_vox + 1)-row accumulator (the last row
+drops out-of-band samples), and outputs carry a class axis. Each insert
+adds an image's DC draws to its class's centre row once, as their sum
 (``dc_draw_weights``): the same function as the JAX insert, in another add
-order that keeps K2's f32 table at its exact sum.
+order that keeps K2's f32 table at its exact sum. The 2D insert (width-12
+rows, no Pallas kernel in the JAX package either) adds with ``index_add_``.
 """
 
 import torch
 
 from ..dtypes import real_dtype
 from ..geom import quat
+from ..ops.brick import _corners2, fold_insert2
 from ..ops import brick, likelihood
 from ..ops.insert import insert_update, new_table, rows_pad
 from ..ops.translate import translation_phase
@@ -38,8 +44,11 @@ def _flat_tables(bricks):
     """(2, K, hz, mc, mc, C) half-space tables -> (flat (2 K n_vox, C),
     mc, n_vox), n_vox = hz mc mc the rows of one table: hz = mc // 2 + 1
     for the odd crop, mc // 2 where the band's crop is clipped to the even
-    padded box (a band near Nyquist)."""
+    padded box (a band near Nyquist). 2D tables (2, K, mc, mc, C) have
+    n_vox = mc mc."""
     mc = bricks.shape[-2]
+    if bricks.ndim == 5:
+        return bricks.reshape(-1, bricks.shape[-1]), mc, mc * mc
     if bricks.shape[-4] == mc:
         raise NotImplementedError(
             "engine: full-space 3D brick tables are not ported (half=True)")
@@ -49,15 +58,32 @@ def _flat_tables(bricks):
 
 def fused_class_gather(flat, coords, table, mc, n_vox):
     """Gather each image's slices from ITS table (half and class folded
-    into ``table`` (B,)) with the conjugate-mirror fetch of the half-space
-    layout. coords: (B, ..., 3) -> (B, ...) complex64."""
-    idx, w8, valid, sgn = brick._corners3_half(coords, mc)
+    into ``table`` (B,)): with the conjugate-mirror fetch of the 3D
+    half-space layout for coords (B, ..., 3), bilinear for 2D coords
+    (B, ..., 2). Returns (B, ...) complex64."""
+    if coords.shape[-1] == 2:
+        idx, w_c, valid = _corners2(coords, mc)
+        sgn = 1.0
+    else:
+        idx, w_c, valid, sgn = brick._corners3_half(coords, mc)
     idx = torch.where(valid, idx, torch.zeros_like(idx)) + (
         table.long() * n_vox).reshape((-1,) + (1,) * (idx.ndim - 1))
     rows = flat[idx.reshape(-1)].reshape(idx.shape + (flat.shape[-1],))
-    re, im = brick.interp_rows(rows, w8)
+    re, im = brick.interp_rows(rows, w_c, n_corner=w_c.shape[-1])
     out = torch.complex(re, im * sgn)
     return torch.where(valid, out, torch.zeros_like(out))
+
+
+def _rot_mats(r_sup, mode):
+    """Support rotations -> matrices; 2D keeps (cos phi, sin phi) of the
+    in-plane angle in the first two slots."""
+    return quat.rotate2d_vec(r_sup) if mode == "2d" else quat.rotate3d(r_sup)
+
+
+def _slice_coords(rots, col, row, pf):
+    if rots.shape[-1] == 2:
+        return projector.slice_coords_2d(rots, col, row, pf=pf)
+    return projector.slice_coords_3d(rots, col, row, pf=pf)
 
 
 def _table_index(cls, k_classes):
@@ -70,21 +96,23 @@ def _table_index(cls, k_classes):
 
 def scan_init(bricks, rots, quats, tra, trans, col, row, pmask, dat, ctf,
               sig_rcp, gumbel, u0_r, u0_t, *, pf, m_l_r, m_l_t, m_l_d,
-              chunk):
+              chunk, mode="3d"):
     """Phase A: every image against every scan pose of its half's class
     references, then the particle-filter seeding (src/Optimiser.cpp:
     633-1136).
 
-    bricks: (2, K, ...) tables; rots (R, 3, 3); quats (R, 4); tra (T, P);
+    bricks: (2, K, ...) tables; rots (R, 3, 3), or (R, 2, 2) in-plane
+    rotations in 2D mode; quats (R, 4); tra (T, P);
     trans (T, 2); dat/ctf/sig_rcp (2, S, P); gumbel (2, S, K); u0_r/u0_t
     (2, S). The scan runs through kernel K1 (``likelihood.scan_fused``).
     Returns (state (2, S, ...), wC (2, S, K))."""
     k_cls = bricks.shape[1]
     s = dat.shape[1]
+    project = (projector.project_brick_2d if mode == "2d"
+               else projector.project_brick_3d)
     halves, wcs = [], []
     for h in range(2):
-        proj = torch.stack([projector.project_brick_3d(bricks[h, k], rots,
-                                                       col, row, pf=pf)
+        proj = torch.stack([project(bricks[h, k], rots, col, row, pf=pf)
                             for k in range(k_cls)])  # (K, R, P)
         parts, wc_parts = [], []
         for s0 in range(0, s, chunk):
@@ -94,7 +122,7 @@ def scan_init(bricks, rots, quats, tra, trans, col, row, pmask, dat, ctf,
                 pixel_mask=pmask)
             parts.append(particle.init_from_scan(
                 out["wC"], out["wR"], out["wT"], quats, trans, m_l_r, m_l_t,
-                m_l_d, gumbel[h, sl], u0_r[h, sl], u0_t[h, sl]))
+                m_l_d, gumbel[h, sl], u0_r[h, sl], u0_t[h, sl], mode=mode))
             wc_parts.append(out["wC"])
         halves.append({key: torch.cat([p[key] for p in parts])
                        for key in parts[0]})
@@ -107,29 +135,33 @@ def scan_init(bricks, rots, quats, tra, trans, col, row, pmask, dat, ctf,
 # ------------------------------------------------------------ local search
 
 def _phase_step(st, dat, ctf, sig_rcp, table, dr, flat, mc, n_vox, col, row,
-                pmask, sym_quats, factor, pf, n):
+                pmask, sym_quats, factor, pf, n, mode):
     """One phase for a batch of ACTIVE images (flattened batch axis):
     perturb -> fused-class projection -> block log-sum-exp -> posterior
     update. Returns (new state, shrank (B,) bool)."""
-    r = particle.perturb_r(st["r"], st["k1"], st["k2"], st["k3"], factor,
-                           dr["normals_r"], sym_quats=sym_quats)
+    if mode == "2d":
+        r = particle.perturb_r_2d(st["r"], st["k1"], factor, dr)
+    else:
+        r = particle.perturb_r(st["r"], st["k1"], st["k2"], st["k3"], factor,
+                               dr["normals_r"], sym_quats=sym_quats)
     t = particle.perturb_t(st["t"], st["s0"], st["s1"], factor,
                            dr["normals_t"])
     st = {**st, "r": r, "t": t}
-    coords = projector.slice_coords_3d(quat.rotate3d(r), col, row, pf=pf)
+    coords = _slice_coords(_rot_mats(r, mode), col, row, pf)
     proj = fused_class_gather(flat, coords, table, mc, n_vox)
     tra = translation_phase(col, row, t[..., 0], t[..., 1], n)
     u_r, u_t = likelihood.local_search_weights(
         dat, ctf, sig_rcp, proj, tra, st["wR"], st["wT"], pixel_mask=pmask)
     new = particle.update_from_likelihood(
-        st, u_r, u_t, dr["u0_r"], dr["u0_t"], dr["anchor"],
-        sym_quats=sym_quats)
-    return new, particle.vari_shrank(new, st)
+        st, u_r, u_t, dr["u0_r"], dr["u0_t"], dr.get("anchor"),
+        sym_quats=sym_quats, mode=mode)
+    return new, particle.vari_shrank(new, st, mode=mode)
 
 
 def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
                  phase_draws, sym_quats, factor_l, factor_s, *, pf, n,
-                 min_phase, max_phase=particle.MAX_N_PHASE_PER_ITER):
+                 min_phase, max_phase=particle.MAX_N_PHASE_PER_ITER,
+                 mode="3d"):
     """Phase B: the particle-filter phase loop with the reference's
     termination rule (src/Optimiser.cpp:1138-1660), all images of both
     halves batched; finished images drop out of later phases (their state
@@ -137,7 +169,9 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
 
     state: particle dict (2, S, ...); phase_draws(phase) -> dict with
     normals_r (2, S, nR, 4), normals_t (2, S, nT, 2), u0_r, u0_t (2, S),
-    anchor (2, S). Returns (state, phases run per image (2, S))."""
+    anchor (2, S); in 2D mode the von Mises uniforms u_z, u_2 (2, S,
+    ROUNDS, nR), u_s, theta (2, S, nR) replace normals_r and anchor.
+    Returns (state, phases run per image (2, S))."""
     flat, mc, n_vox = _flat_tables(bricks)
     k_cls = bricks.shape[1]
     two, s = dat.shape[:2]
@@ -166,7 +200,8 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
             new, shr = _phase_step(
                 {k: v[ix] for k, v in st.items()}, d_f[ix], c_f[ix],
                 s_f[ix], table[ix], {k: v[ix] for k, v in dr.items()},
-                flat, mc, n_vox, col, row, pmask, sym_quats, factor, pf, n)
+                flat, mc, n_vox, col, row, pmask, sym_quats, factor, pf, n,
+                mode)
             for k, v in new.items():
                 st[k][ix] = v
             shrank[a0:a0 + sub] = shr
@@ -186,39 +221,56 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
 # --------------------------------------------------------- gridding insert
 
 def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
-                       tra_off, *, pf, n, mc, chunk):
+                       tra_off, *, pf, n, mc, chunk, k_classes=1,
+                       mode="3d"):
     """M-step gridding insert (Optimiser::reconstructRef draws mReco
     support points per image, src/Optimiser.cpp:6711+): for each half,
     every image's ``n_draw`` support draws ri/ti (2, S, n_draw) are inserted
-    with kernel K2 into a channel-minor brick accumulator, which is then
-    folded to voxels with the deferred Hermitian mirror. One class (K = 1);
-    symmetrisation is applied afterwards (``symmetrize_halves``).
+    into its class's block of one class-fused accumulator, which is then
+    folded to voxels (pixels in 2D) class by class with the deferred
+    Hermitian mirror. 3D inserts with kernel K2 into a channel-minor table
+    (``new_table``); symmetrisation is applied afterwards
+    (``symmetrize_halves``). 2D adds width-12 rows with ``index_add_``.
 
     dat_ori (2, S, P) UNMASKED pixels; ctf (2, S, P); state r/t/c;
     w_img (2, S) insertion weights (0 on invalid slots); tra_off (2, S, 2)
-    re-centring offsets. Returns (F (2, mc, mc, mc) complex64,
-    T (2, mc, mc, mc), offsets (2, 1, 4) = [sum dir, count])."""
-    if int(torch.max(state["c"])) > 0:
-        raise NotImplementedError("engine.insert_fold_reduce: K > 1 "
-                                  "(fused class insert) is not ported")
+    re-centring offsets. Returns (F (2, mc^d..) complex64, T (2, mc^d..),
+    offsets (2, K, 4) = [sum dir, count] per class); F and T carry a class
+    axis (2, K, mc^d..) when ``k_classes`` > 1."""
     dev = dat_ori.device
-    n_vox = mc ** 3
+    dims = 2 if mode == "2d" else 3
+    n_vox = mc ** dims
     s = dat_ori.shape[1]
     fs, ts, offs = [], [], []
     for h in range(2):
-        tab = new_table(rows_pad(n_vox + 1), device=dev)
-        off = torch.zeros((1, 4), dtype=real_dtype, device=dev)
+        tab = (torch.zeros((k_classes * n_vox + 1, 12), dtype=torch.float32,
+                           device=dev) if mode == "2d"
+               else new_table(rows_pad(k_classes * n_vox + 1), device=dev))
+        off = torch.zeros((k_classes, 4), dtype=real_dtype, device=dev)
+        insert = _insert_chunk_2d if mode == "2d" else _insert_chunk
         for s0 in range(0, s, chunk):
             sl = slice(s0, min(s, s0 + chunk))
-            off[0] += _insert_chunk(
+            cls = state["c"][h, sl].long()
+            o_img = insert(
                 tab, col, row, pmask, dat_ori[h, sl], ctf[h, sl],
                 w_img[h, sl], state["r"][h, sl], state["t"][h, sl],
-                ri[h, sl], ti[h, sl], tra_off[h, sl], pf=pf, n=n, mc=mc)
-        f_h, t_h = brick.fold_insert3_lane(tab, mc)
-        fs.append(f_h)
-        ts.append(t_h)
+                ri[h, sl], ti[h, sl], tra_off[h, sl], pf=pf, n=n, mc=mc,
+                cls=cls, k_classes=k_classes)
+            off.index_add_(0, cls, o_img)
+        if mode == "2d":
+            parts = [fold_insert2(tab[kc * n_vox:(kc + 1) * n_vox + 1])
+                     for kc in range(k_classes)]
+        else:
+            parts = [brick.fold_insert3_lane(tab[:, kc * n_vox:], mc)
+                     for kc in range(k_classes)]
+        del tab
+        fs.append(torch.stack([p[0] for p in parts]))
+        ts.append(torch.stack([p[1] for p in parts]))
         offs.append(off)
-    return torch.stack(fs), torch.stack(ts), torch.stack(offs)
+    f, t = torch.stack(fs), torch.stack(ts)
+    if k_classes == 1:
+        f, t = f[:, 0], t[:, 0]
+    return f, t, torch.stack(offs)
 
 
 def dc_draw_weights(col, row, n_draw):
@@ -230,60 +282,107 @@ def dc_draw_weights(col, row, n_draw):
     rounds the same way on every add and the error grows with the count
     (12,800 at 256 particles and 100 draws). Weight D on draw 0 and 0 on
     the others gives the same sum, formed with one rounding; K2 skips the
-    zero rows. Every other pixel keeps weight 1."""
+    zero rows. Every other pixel keeps weight 1. All draws of an image go
+    to its own class's block, so the merged sum lands on that class's
+    centre row."""
     dc = (col == 0) & (row == 0)
     first = torch.arange(n_draw, device=col.device)[:, None] == 0
     w = torch.where(first, float(n_draw), 0.0)
     return torch.where(dc[None, :], w, torch.ones_like(w)).to(real_dtype)
 
 
-def chunk_samples(col, row, pmask, d, c, w, r_sup, t_sup, ri, ti, t_off, *,
-                  pf, n, mc, draw_w=None):
-    """One chunk of images' support draws as flat K2 samples.
-
-    Returns (idx (N,) int32, fr, fi, tv (N,) f32, frac (N, 3) f32, o_add
-    (4,) [sum dir, count] re-centring sums), N = B D P in (image, draw,
-    pixel) order. ``draw_w`` (D, P) multiplies every sample's values
-    (``dc_draw_weights``); None inserts every draw as it is, as the JAX
-    insert does."""
-    n_vox = mc ** 3
+def _draw_poses(r_sup, t_sup, ri, ti, t_off, w, mode):
+    """The drawn support poses of a chunk: (rotation matrices (B, D, d, d),
+    t_rel (B, D, 2) = translation - offset, per-image re-centring sums
+    (B, 4) = [sum dir, count], dir = -rot (t_rel, 0))."""
     q_d = particle._take(r_sup, ri.long())                 # (B, D, 4)
     t_d = particle._take(t_sup, ti.long())                 # (B, D, 2)
     t_rel = t_d - t_off[:, None, :]
-    rots = quat.rotate3d(q_d)                              # (B, D, 3, 3)
-    t3 = torch.cat([t_rel, torch.zeros_like(t_rel[..., :1])], -1)
-    dirv = -torch.einsum("bnij,bnj->bni", rots, t3)
+    rots = _rot_mats(q_d, mode)
+    if mode == "2d":
+        dirv = -torch.einsum("bnij,bnj->bni", rots, t_rel)
+        dirv = torch.cat([dirv, torch.zeros_like(dirv[..., :1])], -1)
+    else:
+        t3 = torch.cat([t_rel, torch.zeros_like(t_rel[..., :1])], -1)
+        dirv = -torch.einsum("bnij,bnj->bni", rots, t3)
     cnt = (w > 0)[:, None].expand(dirv.shape[:2]).to(real_dtype)
     o_add = torch.cat([dirv * cnt[..., None], cnt[..., None]], -1)
-    coords = projector.slice_coords_3d(rots, col, row, pf=pf)
+    return rots, t_rel, o_add.sum(dim=1)
+
+
+def _sample_values(col, row, pmask, d, c, w, t_rel, n, draw_w):
+    """Pose-weighted values of a chunk's samples: fv (B, D, P) complex,
+    tv (B, D | 1, P)."""
     tra = translation_phase(col, row, -t_rel[..., 0], -t_rel[..., 1],
                             n)                             # (B, D, P)
     pw = pmask if draw_w is None else pmask * draw_w       # (P,) | (D, P)
     wv = (w[:, None, None] * pw).to(real_dtype)            # (B, 1 | D, P)
     fv = d[:, None, :] * tra * c[:, None, :] * wv
-    tv = ((c[:, None, :] ** 2) * wv).expand(fv.shape)
+    tv = (c[:, None, :] ** 2) * wv
+    return fv, tv
+
+
+def chunk_samples(col, row, pmask, d, c, w, r_sup, t_sup, ri, ti, t_off, *,
+                  pf, n, mc, draw_w=None, cls=None, k_classes=1):
+    """One chunk of images' support draws as flat K2 samples.
+
+    Returns (idx (N,) int32, fr, fi, tv (N,) f32, frac (N, 3) f32, o_img
+    (B, 4) per-image [sum dir, count] re-centring sums), N = B D P in
+    (image, draw, pixel) order. ``cls`` (B,) offsets each image's rows by
+    ``cls * mc^3`` into a ``k_classes``-fold table whose drop row is
+    ``k_classes * mc^3``. ``draw_w`` (D, P) multiplies every sample's
+    values (``dc_draw_weights``); None inserts every draw as it is, as the
+    JAX insert does."""
+    n_vox = mc ** 3
+    rots, t_rel, o_img = _draw_poses(r_sup, t_sup, ri, ti, t_off, w, "3d")
+    coords = projector.slice_coords_3d(rots, col, row, pf=pf)
+    fv, tv = _sample_values(col, row, pmask, d, c, w, t_rel, n, draw_w)
+    tv = tv.expand(fv.shape)
     base = torch.floor(coords)
     bi = base.to(torch.int64) + mc // 2
     idx = (bi[..., 0] * mc + bi[..., 1]) * mc + bi[..., 2]
+    if cls is not None:
+        idx = idx + (cls.long() * n_vox)[:, None, None]
     valid = torch.all((bi >= 0) & (bi < mc - 1), dim=-1)
-    idx = torch.where(valid, idx, torch.full_like(idx, n_vox))
+    idx = torch.where(valid, idx, torch.full_like(idx, k_classes * n_vox))
     frac = (coords - base).float()
     return (idx.reshape(-1).to(torch.int32), fv.real.reshape(-1).contiguous(),
             fv.imag.reshape(-1).contiguous(), tv.reshape(-1).contiguous(),
-            frac.reshape(-1, 3), o_add.sum(dim=(0, 1)))
+            frac.reshape(-1, 3), o_img)
 
 
 def _insert_chunk(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
-                  t_off, *, pf, n, mc):
+                  t_off, *, pf, n, mc, cls=None, k_classes=1):
     """Insert one chunk of images' support draws into ``tab`` with K2,
     each image's DC draws added once (``dc_draw_weights``); returns the
-    chunk's (4,) [sum dir, count] re-centring sums. Its sample
+    chunk's (B, 4) per-image [sum dir, count] re-centring sums. Its sample
     temporaries are freed on return, before the fold."""
-    *samples, o_add = chunk_samples(
+    *samples, o_img = chunk_samples(
         col, row, pmask, d, c, w, r_sup, t_sup, ri, ti, t_off, pf=pf, n=n,
-        mc=mc, draw_w=dc_draw_weights(col, row, ri.shape[1]))
+        mc=mc, draw_w=dc_draw_weights(col, row, ri.shape[1]), cls=cls,
+        k_classes=k_classes)
     insert_update(tab, *samples)
-    return o_add
+    return o_img
+
+
+def _insert_chunk_2d(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
+                     t_off, *, pf, n, mc, cls, k_classes):
+    """The 2D counterpart of ``_insert_chunk``: bilinear width-12 rows
+    added into the (K mc^2 + 1, 12) accumulator with ``index_add_`` (the
+    JAX package's XLA row scatter), each image's DC draws added once.
+    Returns the (B, 4) per-image re-centring sums."""
+    n_vox = mc * mc
+    rots, t_rel, o_img = _draw_poses(r_sup, t_sup, ri, ti, t_off, w, "2d")
+    coords = projector.slice_coords_2d(rots, col, row, pf=pf)
+    fv, tv = _sample_values(col, row, pmask, d, c, w, t_rel, n,
+                            dc_draw_weights(col, row, ri.shape[1]))
+    idx, w4, valid = _corners2(coords, mc)
+    idx = idx + (cls.long() * n_vox)[:, None, None]
+    idx = torch.where(valid, idx, torch.full_like(idx, k_classes * n_vox))
+    contrib = torch.cat([fv.real[..., None] * w4, fv.imag[..., None] * w4,
+                         tv.expand(fv.shape)[..., None] * w4], -1)
+    tab.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 12))
+    return o_img
 
 
 def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
@@ -302,9 +401,9 @@ def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
 
 
 def reconstruct_halves(f, t, fsc, w0, r_u, *, pf, n, join_half=False,
-                       warm=False, blob_a=1.9, blob_alpha=15.0):
-    """Per-half Wiener/C-balance reconstruction. f/t/w0: (2, mc, mc, mc);
-    returns (volumes (2, n, n, n), converged weights (2, mc, mc, mc))."""
+                       warm=False, blob_a=1.9, blob_alpha=15.0, dims=3):
+    """Per-half Wiener/C-balance reconstruction. f/t/w0: (2, mc^d..);
+    returns (maps (2, n^d..), converged weights (2, mc^d..))."""
     from ..core import reconstructor
 
     vols, ws = [], []
@@ -312,7 +411,7 @@ def reconstruct_halves(f, t, fsc, w0, r_u, *, pf, n, join_half=False,
         v, w = reconstructor.reconstruct_cropped(
             f[h], t[h], fsc, n, pf=pf, max_radius=r_u, join_half=join_half,
             blob_a=blob_a, blob_alpha=blob_alpha,
-            w_init=w0[h] if warm else None, return_w=True)
+            w_init=w0[h] if warm else None, return_w=True, dims=dims)
         vols.append(v)
         ws.append(w)
     return torch.stack(vols), torch.stack(ws)
@@ -332,12 +431,13 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
     [|datOri|^2, Re(datOri conj(ctf pri)), |ctf pri|^2] shells."""
     flat, mc, n_vox = _flat_tables(bricks)
     k_cls = bricks.shape[1]
+    mode = "2d" if bricks.ndim == 5 else "3d"
     two, s, p = dat.shape
     nb = two * s
     fl = lambda x: x.reshape((nb,) + x.shape[2:])
     table = fl(_table_index(state["c"], k_cls))
-    coords = projector.slice_coords_3d(
-        quat.rotate3d(fl(state["topR"]))[:, None], col, row, pf=pf)
+    coords = _slice_coords(_rot_mats(fl(state["topR"]), mode)[:, None], col,
+                           row, pf)
     pri = fused_class_gather(flat, coords, table, mc, n_vox)[:, 0]
     topt = fl(state["topT"])
     t_o = topt - fl(tra_off)
