@@ -58,24 +58,51 @@ Phases, each printing a flushed progress line with elapsed seconds:
    64 a view, random in-plane angles), references seeded from the views;
    a global and a local round, each held to ROUND_ANG_MAX (in-plane
    angle), CLASS2D_PURITY_MIN, class identity and ROUND2D_RES_MIN;
-8. a JSON line of per-kernel numbers (launches summed over the rounds of
-   phases 5a-b, 6 and 7, and per round; K1's readings at the class-stacked
-   shapes; K2's on the fused class table), the card line again, and the
-   final status line {"ok": true, "device": {...}}.
+8. path C, CTF search and the final round: bench.py's Para with CTF
+   search on (configs/demo.json's m_l_d 9 and ctf_refine_s 0.01) and both
+   per-round save flags on, writing into a fresh temporary directory, on
+   256 particles made as in phase 5 with two changes: each image's CTF at
+   a true defocus factor 1 + eps, eps ~ N(0, 0.01) (the optimiser is given
+   the unscaled defocus), and 150 small Gaussians with their C4 mates
+   added to the phantom (``phantom(atoms=...)``: detail past shell 15 for
+   the CTF search to read): a global round, a local round pinned at r = 40, a CTF round
+   pinned there (``pin_ctf``) and its files, then ``Optimiser.run
+   (max_iter=1)``: a second CTF round with its files and the final round
+   (the Nyquist band, mc = 317) with the final file set. Each CTF round
+   holds K1 launched 0 times and K2 4 times, the pose and resolution bars,
+   sD finite and positive and the (2, S, 9) defocus support; the median
+   defocus error after the second CTF round falls below its entry value
+   and CTF_DFAC_ERR_MAX; the final round holds K2 launched 4 times at
+   mc = 317, half 0's whole final-band table (31.86 M rows) against the
+   exact f64 sum at K2_TOL, the joined map's FSC against the phantom above
+   0.5 over shells 1 .. FINAL_FSC_SHELLS and the final FSC-0.143 shell at
+   ROUND_RES_MIN; every file the JAX package names for this Para is
+   written, the maps read back through ``read_mrc`` at 160^3 with voxel
+   1.32, and Meta_Final.thu through ``read_thu`` with 256 x 27 values and
+   ``best_defocus`` in its defocus-factor column;
+9. a JSON line of per-kernel numbers (launches summed over the rounds of
+   phases 5a-b, 6, 7 and 8, and per round; K1's readings at the
+   class-stacked shapes; K2's on the fused class table and on a
+   final-band chunk), the card line again, and the final status line
+   {"ok": true, "device": {...}}.
 
 Phase 3 also holds K1 at the classification paths' class-stacked shapes
 (K1_CLASS_SHAPES: B 64, K 4, R 2500, T 151 and B 64, K 30, R 100, T 151),
 normalised wC included.
 
-``--data-study`` adds, after phase 7, the global round on bench.py's own
+``--data-study`` adds, after phase 8, the global round on bench.py's own
 data (asymmetric phantom, noise 1.0) and on the two data sets that change
 one of those two settings, and two pinned local rounds on bench.py's own
 data, and prints their pose error and resolution without bounds: it shows
-what the smoke's easier data changes; then both classification paths from
-the JAX package's default of identical references, three global rounds
-each, with purity and resolution per round (no bounds).
+what the smoke's easier data changes; then path C's rounds on the blob
+phantom without the atoms (two CTF rounds, the defocus error after each);
+then both classification paths from the JAX package's default of
+identical references, three global rounds each, with purity and
+resolution per round (no bounds).
 
 Any failed check raises, so the script exits non-zero and prints no result.
+Path C's files go to a temporary directory outside the repository, removed
+at its end.
 It imports nothing of JAX or of the JAX package: the synthetic data are
 made with NumPy and the port's own projector, CTF and translation code.
 """
@@ -124,6 +151,25 @@ N_CLASS2D = 64
 CLASS_PURITY_MIN = 0.95    # path A: share of images in their own class
 CLASS2D_PURITY_MIN = 0.8   # path B (30 views of one phantom)
 ROUND2D_RES_MIN = 30       # path B: best class's FRC-0.143 shell in band
+# path C, CTF search and the final round: true defocus factors 1 + eps,
+# eps ~ N(0, CTF_EPS_SD) (median |eps| ~ 0.0067 at entry); the phantom
+# carries CTF_ATOMS small Gaussians (with their C4 mates) beside the blobs:
+# the blobs hold no signal past shell ~15, where a 1 % defocus change
+# moves the CTF phase by < 0.05 rad, and the first card run on them read
+# the error rising to 0.024 (a random walk of the support); with the
+# atoms it fell to 0.0022 after two CTF rounds (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md), and CTF_DFAC_ERR_MAX is set from that reading. The
+# joined final map's FSC against the phantom stays above 0.5 over shells
+# 1 .. FINAL_FSC_SHELLS (the JAX package's bar, shells 1-4 of 12 in
+# tests/test_final_round.py, scaled to 80 shells); FINAL_MC is the final
+# band's accumulator crop (r_u = max_r = 78 at 160 px, table band 78)
+CTF_EPS_SD = 0.01
+ATOM_SD = 1.2        # path C's phantom detail (``phantom(atoms=...)``)
+ATOM_HEIGHT = 0.5
+CTF_ATOMS = 150
+CTF_DFAC_ERR_MAX = 0.004
+FINAL_FSC_SHELLS = 26
+FINAL_MC = 317
 
 
 def log(msg):
@@ -651,12 +697,13 @@ def exact_table(calls, r_pad, dev, step=1 << 23):
     return exact.T
 
 
-def k2_local_table(dev, calls):
-    """K2 on a local round's whole per-half table: the table as the fold
-    received it (every call of the half, both chunks) against the f64 sum
-    of all those calls' f32 corner rows at K2_TOL, the plain version's
-    error beside it; then K2 and index_add_ timed in turns on one chunk's
-    samples, with the bound counted by the rows hit."""
+def k2_local_table(dev, calls, label="a local round", key="local_round"):
+    """K2 on a round's whole per-half table (``label``; a local round's by
+    default): the table as the fold received it (every call of the half,
+    both chunks) against the f64 sum of all those calls' f32 corner rows
+    at K2_TOL, the plain version's error beside it; then K2 and index_add_
+    timed in turns on one chunk's samples, with the bound counted by the
+    rows hit. The readings' keys start with ``key``."""
     import torch
 
     from thunder_tpu_torch.ops import insert
@@ -672,7 +719,7 @@ def k2_local_table(dev, calls):
     rel = float((tab.double() - exact).abs().max()) / scale
     rel_plain = float((plain.double() - exact).abs().max()) / scale
     n_samples = sum(c[1].shape[0] for c in calls)
-    log(f"K2 on a local round's whole half table ({len(calls)} calls, "
+    log(f"K2 on {label}'s whole half table ({len(calls)} calls, "
         f"{n_samples} samples, R_pad {r_pad}): max |err| / max |exact| "
         f"{rel:.3e} (kernel), {rel_plain:.3e} (plain version, index_add_ in "
         f"f32)")
@@ -686,21 +733,25 @@ def k2_local_table(dev, calls):
     ms, lib_ms, turns = time_k2(work, idx, fr, fi, tv, frac, reps=5)
     insert.LAUNCHES["insert_update"] = launches0
     (bound, by), hit = k2_bound(idx, r_pad)
-    log(f"K2 on a local-round chunk ({idx.shape[0]} samples, {hit} rows "
+    log(f"K2 on a chunk of {label} ({idx.shape[0]} samples, {hit} rows "
         f"hit): kernel {ms:.4f} ms, index_add_ {lib_ms:.4f} ms (turns "
         + "/".join(f"{x:.4f}" for x in turns)
         + f"), bound {bound:.4f} ms ({by}), share {bound / ms:.4f}")
-    return dict(local_round_ms=ms, local_round_library_ms=lib_ms,
-                local_round_bound_ms=bound, local_round_samples=idx.shape[0],
-                local_round_rows_hit=hit, local_round_rel_err=rel,
-                local_round_rel_err_plain=rel_plain)
+    out = dict(ms=ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+               samples=idx.shape[0], rows_hit=hit, rows=r_pad, rel_err=rel,
+               rel_err_plain=rel_plain)
+    return {f"{key}_{k}": v for k, v in out.items()}
 
 
 # ------------------------------------------------------------ the round
 
-def phantom(n, rng, symmetric=True):
+def phantom(n, rng, symmetric=True, atoms=0):
     """bench.py's 6-blob phantom (n, n, n) from ``rng``, made C4-symmetric
-    about z unless ``symmetric`` is False (bench.py's is not)."""
+    about z unless ``symmetric`` is False (bench.py's is not). ``atoms``
+    > 0 adds that many small Gaussians (sd ATOM_SD px, height ATOM_HEIGHT,
+    each with its C4 mates when ``symmetric``) in the blobs' cube: detail
+    out to high shells, which the blobs (sd n/30 .. n/12 px) do not
+    carry."""
     import numpy as np
 
     g = np.mgrid[:n, :n, :n].astype(np.float32) - n // 2
@@ -714,13 +765,26 @@ def phantom(n, rng, symmetric=True):
         for cx, cy in mates[:4 if symmetric else 1]:
             vol += np.exp(-((g[0] - c[2]) ** 2 + (g[1] - cy) ** 2
                             + (g[2] - cx) ** 2) / (2 * s * s))
+    w = int(np.ceil(4 * ATOM_SD))
+    for c in rng.uniform(-n / 5, n / 5, (atoms, 3)):
+        mates = ((c[0], c[1]), (-c[1], c[0]), (-c[0], -c[1]), (c[1], -c[0]))
+        for cx, cy in mates[:4 if symmetric else 1]:
+            ctr = np.array([c[2], cy, cx]) + n // 2   # (z, y, x) voxel
+            lo = np.floor(ctr).astype(int) - w
+            sl = tuple(slice(a, a + 2 * w + 2) for a in lo)
+            d2 = sum(((np.arange(a, a + 2 * w + 2) - x) ** 2).reshape(
+                [-1 if i == j else 1 for j in range(3)])
+                for i, (a, x) in enumerate(zip(lo, ctr)))
+            vol[sl] += ATOM_HEIGHT * np.exp(-d2 / (2 * ATOM_SD ** 2))
     return vol
 
 
-def project_stack(dev, vol, b, rng, noise, trans_sd=2.0):
+def project_stack(dev, vol, b, rng, noise, trans_sd=2.0, dfac=None):
     """``b`` images of ``vol`` at uniform random poses: projected,
     CTF-modulated, shifted by N(0, trans_sd) px, plus Gaussian noise of
-    ``noise`` x the clean stack's std. Returns (stack, quats, CTF
+    ``noise`` x the clean stack's std. ``dfac`` (b,) scales each image's
+    defocus_u and defocus_v in its CTF (a true defocus factor); the CTF
+    parameters returned are the unscaled ones. Returns (stack, quats, CTF
     params)."""
     import numpy as np
     import torch
@@ -740,6 +804,9 @@ def project_stack(dev, vol, b, rng, noise, trans_sd=2.0):
               cs=np.zeros(b), amp_contrast=np.full(b, 0.1),
               phase_shift=np.zeros(b))
     cp = {k: v.astype(np.float32) for k, v in cp.items()}
+    cp_img = dict(cp) if dfac is None else {
+        **cp, "defocus_u": (cp["defocus_u"] * dfac).astype(np.float32),
+        "defocus_v": (cp["defocus_v"] * dfac).astype(np.float32)}
     vf = projector.build_projectee_3d(torch.as_tensor(vol, device=dev), pf=2)
     f = torch.arange(n, device=dev) - n // 2
     colf = f[None, :].expand(n, n).reshape(-1).float()
@@ -750,7 +817,7 @@ def project_stack(dev, vol, b, rng, noise, trans_sd=2.0):
         rots = quat.rotate3d(torch.as_tensor(q[sl], device=dev))
         proj = projector.project_full_3d(vf, rots, n, n // 2 - 1, pf=2)
         c2d = ctf_ops.ctf_pixels(colf, rowf, n, 1.32, *[
-            torch.as_tensor(cp[k][sl], device=dev)[:, None] for k in
+            torch.as_tensor(cp_img[k][sl], device=dev)[:, None] for k in
             ("voltage", "defocus_u", "defocus_v", "defocus_theta", "cs",
              "amp_contrast", "phase_shift")]).reshape(-1, n, n)
         sl_ft = translate_ft(proj * c2d, torch.as_tensor(tr[sl, 0], device=dev),
@@ -763,17 +830,24 @@ def project_stack(dev, vol, b, rng, noise, trans_sd=2.0):
     return stack, q, cp
 
 
-def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True):
+def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True,
+                      dfac_sd=0.0, atoms=0):
     """bench.py's workload made with NumPy + the port: a 6-blob phantom
     (``phantom``) projected at random poses, CTF-modulated, shifted, plus
     Gaussian noise of ``noise`` x the clean stack's std
-    (``project_stack``)."""
+    (``project_stack``). With ``dfac_sd`` > 0 each image's CTF is made at a
+    true defocus factor 1 + eps, eps ~ N(0, dfac_sd) from the seed, and the
+    factors come back as a fifth value."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    vol = phantom(n, rng, symmetric)
-    stack, q, cp = project_stack(dev, vol, b, rng, noise)
-    return vol, stack, q, cp
+    vol = phantom(n, rng, symmetric, atoms)
+    if not dfac_sd:
+        stack, q, cp = project_stack(dev, vol, b, rng, noise)
+        return vol, stack, q, cp
+    dfac = 1.0 + rng.normal(0, dfac_sd, b)
+    stack, q, cp = project_stack(dev, vol, b, rng, noise, dfac=dfac)
+    return vol, stack, q, cp, dfac
 
 
 def bench_para(n=160):
@@ -1009,6 +1083,325 @@ def time_local_rounds(opt, reps=2):
         f"{med:.3f} s, {N_PARTICLES / med:.2f} particles/s (a progress "
         f"reading, not a benchmark)")
     return walls, med
+
+
+# ------------------------------------------------- CTF search, final round
+
+def ctf_para(out_dir, n=160):
+    """Path C's Para: bench.py's with CTF search on, configs/demo.json's
+    defocus support (m_l_d 9) and ctf_refine_s (0.01), and both per-round
+    save flags on, writing into ``out_dir``."""
+    import dataclasses
+
+    return dataclasses.replace(
+        bench_para(n), c_search=True, m_l_d=9, ctf_refine_s=0.01,
+        save_ref_each_iter=True, save_thu_each_iter=True,
+        output_directory=out_dir)
+
+
+def pin_ctf(opt, r=R_LOCAL):
+    """A CTF-search round at band r, entered as the optimiser enters it:
+    ``LadderState.transition`` resets the ladder's counters on the switch
+    (without it the round reads the previous round's counters and the
+    ladder stops after it), then ``run_iteration`` seeds the defocus
+    support (``_seed_defocus_search``)."""
+    from thunder_tpu_torch.core import optimiser as om
+
+    opt.ladder.search_type = om.SEARCH_TYPE_CTF
+    opt.ladder.r = r
+    opt.ladder._reset_counters()
+    opt._seed_defocus_search()
+
+
+def dfac_error(opt, dfac):
+    """Median |topD - true factor| over the images."""
+    import numpy as np
+
+    return float(np.median(np.abs(opt.best_defocus - dfac)))
+
+
+def expected_files(rounds, k=1):
+    """The file names the JAX package's ``save_outputs`` writes in 3D with
+    both save flags on, for the saved ``rounds`` (iteration numbers) and
+    the final set (src/Optimiser.cpp:8250-9149 naming)."""
+    names = set()
+    for tag in [f"Round_{i:03d}" for i in rounds] + ["Final"]:
+        names |= {f"FSC_{tag}.txt", f"Class_Info_{tag}.txt",
+                  f"Meta_{tag}.thu"}
+        names |= {f"Reference_{c:03d}_{h}_{tag}.mrc" for c in range(k)
+                  for h in "AB"}
+        if tag == "Final":
+            names |= {f"Reference_{c:03d}_Final.mrc" for c in range(k)}
+        else:
+            names |= {f"{x}_{h}_{tag}.txt" for x in ("Sig", "Tau")
+                      for h in "AB"} | {f"Timing_{tag}.txt"}
+    return names
+
+
+def check_files(opt, out_dir, rounds):
+    """Every file of the per-round and final sets is there and nothing
+    else; the maps read back through the port's ``read_mrc`` at n^3 with
+    the pixel size as voxel size; Meta_Final.thu reads back through
+    ``read_thu`` with one 27-column row per image and ``best_defocus`` in
+    its defocus-factor column."""
+    import os
+
+    import numpy as np
+
+    from thunder_tpu_torch.io import ThuColumns, read_mrc, read_thu
+
+    got = set(os.listdir(out_dir))
+    want = expected_files(rounds, opt.para.k)
+    if got != want:
+        raise AssertionError(f"path C files: missing {sorted(want - got)}, "
+                             f"unexpected {sorted(got - want)}")
+    n, ps = opt.n, opt.para.pixel_size
+    for name in sorted(x for x in got if x.endswith(".mrc")):
+        vol, hdr = read_mrc(os.path.join(out_dir, name), return_header=True)
+        if vol.shape != (n, n, n) or abs(hdr.voxel_size - ps) > 1e-5 \
+                or not np.isfinite(vol).all():
+            raise AssertionError(f"{name}: shape {vol.shape}, voxel size "
+                                 f"{hdr.voxel_size}")
+    t = read_thu(os.path.join(out_dir, "Meta_Final.thu"))
+    col = t.values[:, ThuColumns.DEFOCUS_FACTOR]
+    d_err = float(np.abs(col - opt.best_defocus).max())
+    log(f"path C files: {len(got)} as the JAX package names them; "
+        f"{sum(x.endswith('.mrc') for x in got)} maps read back at "
+        f"({n}, {n}, {n}), voxel {ps}; Meta_Final.thu {t.values.shape}, "
+        f"defocus column against best_defocus max |diff| {d_err:.2e}")
+    if t.values.shape != (opt.n_imgs, 27) or d_err > 1e-6:
+        raise AssertionError(f"Meta_Final.thu: shape {t.values.shape}, "
+                             f"defocus column off by {d_err}")
+
+
+def check_ctf_round(opt, q_true, rec, launches, label, dfac):
+    """A CTF round: K1 launched 0 times, K2 4 times, poses and resolution
+    within ROUND_ANG_MAX / ROUND_RES_MIN, sD finite and positive, the
+    defocus support (2, S, m_l_d). Returns the median defocus error."""
+    import numpy as np
+
+    expect_launches(label, launches, False, 4)
+    check_maps(opt, opt.n)
+    check_poses(opt, q_true, rec, label, True)
+    s_d = opt.par["sD"].cpu().numpy()[opt.plane_valid > 0]
+    shape = tuple(opt.par["d"].shape)
+    err = dfac_error(opt, dfac)
+    log(f"{label}: median |topD - true factor| {err:.5f}; sD median "
+        f"{float(np.median(s_d)):.2e} (min {s_d.min():.2e}); d {shape}")
+    if not (np.isfinite(s_d).all() and (s_d > 0).all()):
+        raise AssertionError(f"{label}: sD not finite and positive")
+    if shape != (2, opt.s_slots, opt.para.m_l_d):
+        raise AssertionError(f"{label}: defocus support shape {shape}")
+    return err
+
+
+def ctf_optimiser(dev, out_dir, n=160, b=N_PARTICLES, atoms=CTF_ATOMS):
+    """Path C's optimiser (``ctf_para``) on bench.py's workload whose CTFs
+    were made at true defocus factors 1 + eps, eps ~ N(0, CTF_EPS_SD); the
+    optimiser is given the unscaled defocus. Returns (opt, phantom, true
+    quats, true factors)."""
+    from thunder_tpu_torch.core.optimiser import Optimiser
+
+    vol, stack, q_true, cp, dfac = synthetic_dataset(
+        dev, n, b, noise=NOISE, dfac_sd=CTF_EPS_SD, atoms=atoms)
+    log(f"path C stack built: {stack.shape}, true defocus factors "
+        f"1 + N(0, {CTF_EPS_SD}); output in a fresh temporary directory")
+    opt = Optimiser(ctf_para(out_dir, n), device=dev)
+    opt.set_data(stack, cp)
+    opt.init_reference(vol=vol)
+    opt.init_sigma()
+    opt._sync()
+    return opt, vol, q_true, dfac
+
+
+def run_ctf_path(dev, k2, n=160, b=N_PARTICLES):
+    """Path C: a CTF-search refinement to its end on bench.py's shape and
+    256 particles whose CTFs were made at true defocus factors 1 + eps,
+    eps ~ N(0, CTF_EPS_SD) (the optimiser is given the unscaled defocus):
+    a global round, a local round pinned at r = 40, a CTF round pinned
+    there (``pin_ctf``) with its files (``save_outputs``, as ``run`` calls
+    it), then ``run(max_iter=1)``: a second CTF round with its files and
+    the final round at the Nyquist band with the final set. Holds each
+    round's launches, poses and resolution, the defocus error, K2's whole
+    final-band half-0 table against the exact sum (readings into ``k2``),
+    the joined map's FSC against the phantom and the files. Returns the
+    launches per round."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.core.optimiser import SEARCH_TYPE_CTF
+    from thunder_tpu_torch.ops import fft as fft_ops
+    from thunder_tpu_torch.ops import insert, likelihood, spectrum
+    from thunder_tpu_torch.parallel import engine
+
+    out_dir = tempfile.mkdtemp(prefix="thunder_smoke_")
+    try:
+        opt, vol, q_true, dfac = ctf_optimiser(dev, out_dir, n, b)
+        per = {}
+        rec, _, per["ctf_path_global"], _ = drive_round(
+            opt, "path C global round")
+        expect_launches("path C global round", per["ctf_path_global"], True,
+                        4)
+        check_poses(opt, q_true, rec, "path C global round", True)
+        pin_local(opt)
+        rec, _, per["ctf_path_local"], _ = drive_round(
+            opt, "path C local round")
+        expect_launches("path C local round", per["ctf_path_local"], False,
+                        4)
+        check_poses(opt, q_true, rec, "path C local round", True)
+        err0 = float(np.median(np.abs(dfac - 1.0)))
+        log(f"path C defocus error at entry (median |eps|): {err0:.5f}")
+        pin_ctf(opt)
+        rec, wall1, per["ctf_round_1"], peak1 = drive_round(
+            opt, "path C CTF round 1")
+        err1 = check_ctf_round(opt, q_true, rec, per["ctf_round_1"],
+                               "path C CTF round 1", dfac)
+        saved = [opt.iteration]
+        opt.save_outputs()
+        if opt.ladder.search_type != SEARCH_TYPE_CTF:
+            raise AssertionError("path C: the ladder left CTF search after "
+                                 "one round; run() would not run a CTF "
+                                 "round")
+
+        # run(max_iter=1): the second CTF round, its files, and finalise;
+        # the counts are read at the entry to finalise and after it, and
+        # half 0's K2 calls of the final round are kept
+        final, half0 = {}, []
+        finalise = opt.finalise
+
+        def grab(args):
+            if not half0 or args[0] is half0[0][0]:
+                half0.append(args)
+
+        def counted_finalise():
+            opt._sync()
+            final["ctf_round_2"] = {
+                "global_scan": likelihood.LAUNCHES["scan_fused"],
+                "insert_update": insert.LAUNCHES["insert_update"]}
+            final["ctf_peak"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            likelihood.LAUNCHES["scan_fused"] = 0
+            insert.LAUNCHES["insert_update"] = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+
+            def hook(*args):
+                grab(args)
+                return insert.insert_update(*args)
+            engine.insert_update = hook
+            t0 = time.perf_counter()
+            try:
+                finalise()
+                opt._sync()
+            finally:
+                engine.insert_update = insert.insert_update
+            final["wall"] = time.perf_counter() - t0
+            final["final_round"] = {
+                "global_scan": likelihood.LAUNCHES["scan_fused"],
+                "insert_update": insert.LAUNCHES["insert_update"]}
+            final["peak"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+        opt.finalise = counted_finalise
+        likelihood.LAUNCHES["scan_fused"] = 0
+        insert.LAUNCHES["insert_update"] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        opt.run(max_iter=1)
+        wall_run = time.perf_counter() - t0
+        rec = opt.history[-1]
+        saved.append(rec["iter"])
+        per["ctf_round_2"] = final["ctf_round_2"]
+        per["final_round"] = final["final_round"]
+        log(f"path C CTF round 2 (in run) + final round: {wall_run:.2f} s; "
+            f"CTF round 2 launches {per['ctf_round_2']}, peak device "
+            f"memory {final['ctf_peak']:.3f} GiB; stage seconds "
+            + json.dumps({k: round(v, 4) for k, v in rec["timing"].items()}))
+        log(f"path C CTF round 2: n_phase (mean, max) = {rec['n_phase']}, "
+            f"res shell {rec['res_shell']}, search type {rec['search_type']}")
+        err2 = check_ctf_round(opt, q_true, rec, per["ctf_round_2"],
+                               "path C CTF round 2", dfac)
+        log(f"path C defocus error: entry {err0:.5f}, after CTF round 1 "
+            f"{err1:.5f}, after CTF round 2 {err2:.5f} (bar "
+            f"{CTF_DFAC_ERR_MAX})")
+        if not (err2 < err0 and err2 <= CTF_DFAC_ERR_MAX):
+            raise AssertionError(f"path C: defocus error {err2} not below "
+                                 f"its entry value {err0} and "
+                                 f"{CTF_DFAC_ERR_MAX}")
+
+        mc = opt.insert_mc(opt.max_r)
+        log(f"path C final round: {final['wall']:.2f} s, launches "
+            f"{per['final_round']}, mc {mc}, peak device memory "
+            f"{final['peak']:.3f} GiB; stage seconds " + json.dumps(
+                {k: round(v, 4) for k, v in opt.final_timing.items()}))
+        expect_launches("path C final round", per["final_round"], False, 4)
+        if mc != FINAL_MC:
+            raise AssertionError(f"path C final round: mc {mc} != {FINAL_MC}")
+        k2.update(k2_local_table(dev, half0, label="the final round",
+                                 key="final_band"), final_band_mc=mc)
+        del half0
+        log("path C readings: " + json.dumps(dict(
+            ctf_round_1_s=wall1, ctf_round_1_peak_gib=peak1,
+            ctf_round_2_and_final_s=wall_run,
+            ctf_round_2_peak_gib=final["ctf_peak"],
+            final_round_s=final["wall"], final_round_peak_gib=final["peak"],
+            final_stage_s=opt.final_timing, dfac_err_entry=err0,
+            dfac_err_ctf_1=err1, dfac_err_ctf_2=err2)))
+        check_maps(opt, opt.n)
+        joined = opt.joined_maps[0]
+        fsc = spectrum.frc_fsc(
+            fft_ops.fft3_center(joined),
+            fft_ops.fft3_center(torch.as_tensor(vol, device=dev)),
+            opt.n // 2, 3).cpu().numpy()
+        res = spectrum.res_p(torch.as_tensor(opt.fsc[0]), 0.143, r_low=1)
+        low = fsc[1:FINAL_FSC_SHELLS + 1]
+        log(f"path C joined map against the phantom: FSC min over shells 1 "
+            f".. {FINAL_FSC_SHELLS} {low.min():.4f} (first shell under 0.5: "
+            f"{int(np.argmax(fsc[1:] < 0.5)) + 1}); final FSC-0.143 shell "
+            f"{res}")
+        if not (np.isfinite(joined.cpu().numpy()).all() and low.min() > 0.5):
+            raise AssertionError("path C: joined map's FSC against the "
+                                 f"phantom {low}")
+        if res < ROUND_RES_MIN:
+            raise AssertionError(f"path C: final FSC shell {res} < "
+                                 f"{ROUND_RES_MIN}")
+        check_files(opt, out_dir, saved)
+        del opt
+        return per
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def ctf_study(dev):
+    """--data-study: path C's rounds on the blob phantom alone (no atoms):
+    a global round, a local round and two CTF rounds pinned at r = 40, the
+    median defocus error after each, no bounds. It shows why path C's
+    phantom carries detail past shell 15."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from thunder_tpu_torch.core.optimiser import SEARCH_TYPE_CTF
+
+    out_dir = tempfile.mkdtemp(prefix="thunder_smoke_")
+    opt, _, q_true, dfac = ctf_optimiser(dev, out_dir, atoms=0)
+    opt.run_iteration()
+    pin_local(opt)
+    opt.run_iteration()
+    log(f"CTF study (blob phantom): defocus error at entry "
+        f"{float(np.median(np.abs(dfac - 1.0))):.5f}")
+    pin_ctf(opt)
+    for i in (1, 2):
+        # the second round keeps the support, whatever the ladder decided
+        opt.ladder.search_type, opt.ladder.r = SEARCH_TYPE_CTF, R_LOCAL
+        rec = opt.run_iteration()
+        log(f"CTF study (blob phantom) CTF round {i}: defocus error "
+            f"{dfac_error(opt, dfac):.5f}, median pose error "
+            f"{float(np.median(pose_error(opt, q_true))):.2f} deg, res shell "
+            f"{rec['res_shell']}")
+    del opt
+    shutil.rmtree(out_dir, ignore_errors=True)
 
 
 # ------------------------------------------------------ classification
@@ -1519,6 +1912,7 @@ def main(argv):
         del opt
         per_path.update(run_class3d(dev, k2))
         per_path.update(run_class2d(dev))
+        per_path.update(run_ctf_path(dev, k2))
         launches = {name: sum(p[name] for p in per_path.values())
                     for name in ("global_scan", "insert_update")}
     if "--data-study" in argv:
@@ -1530,6 +1924,7 @@ def main(argv):
                 run_local_rounds(opt, q_true, bounds=False,
                                  label="data study: pinned local round")
             del opt
+        ctf_study(dev)
         class_study(dev)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1554,7 +1949,7 @@ def main(argv):
              launches_per_path=paths("insert_update"),
              **{k: k2[k] for k in keys + tuple(
                  x for x in k2 if x.startswith(("main_path_", "local_round_",
-                                                "class3d_")))}),
+                                                "class3d_", "final_band_")))}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)  # as nvidia-smi gives it, own line

@@ -32,6 +32,16 @@ global round (the fused class insert) and a local round pinned at r = 40
 (the insert staged class by class), and on one local insert chunk the
 sample build and K2 of the four staged passes against one fused pass into
 the K-fold table at the same band.
+
+    python3 profile_torch.py --ctf [TRACE.json.gz]
+
+profiles ``chip_smoke.py``'s path C (CTF search and the final round): a
+global and a pinned local round unprofiled, a CTF round pinned at r = 40
+(``pin_ctf``) unprofiled to warm up, a second pinned CTF round under the
+profiler, then the final round (``finalise``: the Nyquist band, mc = 317)
+once unprofiled and once under the profiler, cold (no C-balance warm
+start, as in a run). Its files go to a temporary directory that is
+removed at the end.
 """
 
 import json
@@ -67,16 +77,21 @@ def timed_round(opt):
             torch.cuda.max_memory_allocated(opt.device) / 2 ** 30)
 
 
-def profiled_round(opt, trace=None):
-    """One round under torch.profiler: its wall time, device busy share,
-    launches and device time by kernel name."""
+def profiled_round(opt, trace=None, final=False):
+    """One round (``final``: the final round, ``opt.finalise``) under
+    torch.profiler: its wall time, device busy share, launches and device
+    time by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rec = opt.run_iteration()
+        if final:
+            opt.finalise()
+            rec = {"timing": opt.final_timing, "n_phase": None}
+        else:
+            rec = opt.run_iteration()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.events()
@@ -240,6 +255,52 @@ def main_classes(argv):
     return 0
 
 
+def main_ctf(argv):
+    """--ctf: chip_smoke's path C, profiled."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="thunder_profile_")
+    try:
+        opt = cs.ctf_optimiser(dev, out_dir)[0]
+        walls = {"global": timed_round(opt)}
+        cs.pin_local(opt)
+        walls["local"] = timed_round(opt)
+        cs.pin_ctf(opt)
+        walls["ctf_warm_up"] = timed_round(opt)
+        for name, (wall, peak) in walls.items():
+            print(f"{name} round: {wall:.3f} s, peak device memory "
+                  f"{peak:.3f} GiB", flush=True)
+        trace = argv[0] if argv else None
+        out = {"card": card, "unprofiled_s_peak_gib": walls}
+        cs.pin_ctf(opt)
+        out["ctf"] = profiled_round(opt, trace)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        opt.finalise()
+        torch.cuda.synchronize()
+        out["final_unprofiled"] = {
+            "wall_s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "stage_s": opt.final_timing, "mc": opt.insert_mc(opt.max_r)}
+        print(f"final round: {out['final_unprofiled']}", flush=True)
+        opt._w_warm = {}
+        out["final"] = profiled_round(
+            opt, trace and trace.replace(".json", "_final.json"), final=True)
+        print(json.dumps(out, indent=1), flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"card: {card}", flush=True)
+    return 0
+
+
 def main(argv):
     import torch
 
@@ -250,6 +311,8 @@ def main(argv):
         return 2
     if "--classes" in argv:
         return main_classes([a for a in argv if a != "--classes"])
+    if "--ctf" in argv:
+        return main_ctf([a for a in argv if a != "--ctf"])
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(f"card: {card}", flush=True)

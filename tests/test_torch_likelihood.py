@@ -186,7 +186,7 @@ def test_local_search_weights_match():
         jnp.asarray(dat), jnp.asarray(ctf), jnp.asarray(sig_rcp),
         jnp.asarray(proj), jnp.asarray(tra), jnp.asarray(w_r),
         jnp.asarray(w_t), pixel_mask=jnp.asarray(pm))
-    g_r, g_t = tlh.local_search_weights(
+    g_r, g_t, _ = tlh.local_search_weights(
         tt(dat), tt(ctf), tt(sig_rcp), tt(proj), tt(tra), tt(w_r), tt(w_t),
         pixel_mask=tt(pm))
     assert rel_err(nn(g_r), u_r) < 1e-4

@@ -332,8 +332,9 @@ def test_chain_against_ground_truth(path):
 
 def test_run_search_types(path):
     """Optimiser.run(max_iter=3, finalise=False) from the set-up: the JAX
-    package's sequence of search types and bands; finalise=True raises
-    before any round."""
+    package's sequence of search types and bands; a run whose final round
+    would reach the subtraction pipeline (not ported) raises before any
+    round."""
     p = path
     jo = _jax_opt(p["para"], p["data"])
     jhist = jo.run(max_iter=3, finalise=False)
@@ -342,7 +343,7 @@ def test_run_search_types(path):
     hist = opt.run(max_iter=3, finalise=False)
     assert ([(h["search_type"], h["r"]) for h in hist]
             == [(h["search_type"], h["r"]) for h in jhist])
-    fresh = _port(p["para"], p["data"])
+    fresh = _port(dataclasses.replace(p["para"], subtract=True), p["data"])
     with pytest.raises(NotImplementedError):
         fresh.run(max_iter=1)
     assert fresh.iteration == 0

@@ -39,13 +39,15 @@ def rel_err(a, b):
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
 
 
-@partial(jax.jit, static_argnums=(1, 2))
-def per_image_draws(keys, n_r, n_t):
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def per_image_draws(keys, n_r, n_t, n_d=0):
     """The draws of one particle-filter phase from (N, 2) phase keys, as
-    ``engine.local_search`` consumes them (split into 7 sub-keys)."""
+    ``engine.local_search`` consumes them (split into 7 sub-keys); with
+    ``n_d`` > 0 (CTF search) also ``particle.perturb_d``'s normals (sub-key
+    2) and the defocus resample uniform (sub-key 5)."""
     subs = jax.vmap(lambda k: jax.random.split(k, 7))(keys)
     f32 = jnp.float32
-    return {
+    out = {
         "normals_r": jax.vmap(lambda k: jax.random.normal(k, (n_r, 4), f32))(
             subs[:, 0]),
         "normals_t": jax.vmap(lambda k: jax.random.normal(k, (n_t, 2), f32))(
@@ -55,6 +57,12 @@ def per_image_draws(keys, n_r, n_t):
         "anchor": jax.vmap(lambda k: jax.random.randint(k, (), 0, n_r))(
             subs[:, 6]),
     }
+    if n_d:
+        out["normals_d"] = jax.vmap(
+            lambda k: jax.random.normal(k, (n_d,), f32))(subs[:, 2])
+        out["u0_d"] = jax.vmap(lambda k: jax.random.uniform(k, (), f32))(
+            subs[:, 5])
+    return out
 
 
 @partial(jax.jit, static_argnums=(1, 2))
@@ -152,14 +160,14 @@ class JaxDraws:
         return (self._plane(g, shape), self._plane(u_r, shape),
                 self._plane(u_t, shape))
 
-    def phase_draws(self, iteration, shape, n_r, n_t, mode="3d"):
+    def phase_draws(self, iteration, shape, n_r, n_t, mode="3d", n_d=0):
         keys = self._keys(iteration, 2)
-        fn = per_image_draws_2d if mode == "2d" else per_image_draws
 
         def draw(phase):
             kph = _phase_keys(keys, phase)
-            return {k: self._plane(v, shape)
-                    for k, v in fn(kph, n_r, n_t).items()}
+            got = (per_image_draws_2d(kph, n_r, n_t) if mode == "2d"
+                   else per_image_draws(kph, n_r, n_t, n_d))
+            return {k: self._plane(v, shape) for k, v in got.items()}
         return draw
 
     def insert(self, iteration, shape, n_draw, n_r, n_t):

@@ -60,24 +60,31 @@ class Draws:
         return -torch.log(-torch.log(u)), self._rand(*shape), \
             self._rand(*shape)
 
-    def phase_draws(self, iteration, shape, n_r, n_t, mode="3d"):
+    def phase_draws(self, iteration, shape, n_r, n_t, mode="3d", n_d=0):
         """Callable phase -> dict of that phase's draws (see
         ``engine.local_search``); in 2D mode the von Mises sampler's
-        uniforms replace the rotation normals and the anchor."""
+        uniforms replace the rotation normals and the anchor. A CTF-search
+        round (``n_d`` > 0) also draws the defocus normals normals_d
+        (2, S, nD) and resample uniforms u0_d (2, S), after the others."""
         def draw(phase):
             if mode == "2d":
                 rounds = (*shape, VMS_PROPOSAL_ROUNDS, n_r)
-                return {"u_z": self._rand(*rounds),
-                        "u_2": self._rand(*rounds).clamp(min=1e-12),
-                        "u_s": self._rand(*shape, n_r),
-                        "theta": self._rand(*shape, n_r) * (2 * math.pi),
-                        "normals_t": self._randn(*shape, n_t, 2),
-                        "u0_r": self._rand(*shape),
-                        "u0_t": self._rand(*shape)}
-            return {"normals_r": self._randn(*shape, n_r, 4),
-                    "normals_t": self._randn(*shape, n_t, 2),
-                    "u0_r": self._rand(*shape), "u0_t": self._rand(*shape),
-                    "anchor": self._randint(n_r, *shape)}
+                out = {"u_z": self._rand(*rounds),
+                       "u_2": self._rand(*rounds).clamp(min=1e-12),
+                       "u_s": self._rand(*shape, n_r),
+                       "theta": self._rand(*shape, n_r) * (2 * math.pi),
+                       "normals_t": self._randn(*shape, n_t, 2),
+                       "u0_r": self._rand(*shape),
+                       "u0_t": self._rand(*shape)}
+            else:
+                out = {"normals_r": self._randn(*shape, n_r, 4),
+                       "normals_t": self._randn(*shape, n_t, 2),
+                       "u0_r": self._rand(*shape), "u0_t": self._rand(*shape),
+                       "anchor": self._randint(n_r, *shape)}
+            if n_d:
+                out["normals_d"] = self._randn(*shape, n_d)
+                out["u0_d"] = self._rand(*shape)
+            return out
         return draw
 
     def insert(self, iteration, shape, n_draw, n_r, n_t):

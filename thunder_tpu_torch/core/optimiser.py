@@ -1,13 +1,15 @@
-"""The refinement loop, global and local-search rounds, for 3D refinement,
-3D classification (K > 1) and 2D classification (port of
-``thunder_tpu.core.optimiser``; Optimiser::run src/Optimiser.cpp:3561-4075).
+"""The refinement loop, global, local-search and CTF-search rounds and the
+final round, for 3D refinement, 3D classification (K > 1) and 2D
+classification (port of ``thunder_tpu.core.optimiser``; Optimiser::run
+src/Optimiser.cpp:3561-4363).
 
 Every per-image quantity lives as a (2, S, ...) tensor — plane 0 =
 hemisphere A, plane 1 = B, S slots per plane (invalid slots carry
 ``plane_valid`` 0) — on one device. One round of ``run_iteration``:
 
 - E-step: ``global_scan`` (engine.scan_init with kernel K1; global rounds
-  only) and ``local_search`` (the particle-filter phase loop),
+  only) and ``local_search`` (the particle-filter phase loop; in CTF-search
+  rounds over a per-image defocus support too),
 - M-step: ``_residual_stats``, then on local rounds ``norm_correction``
   and ``engine.sigma_rescaled``, and ``maximization_sigma``; the group
   intensity-scale correction (``correct_scale``) on later global rounds,
@@ -20,21 +22,25 @@ hemisphere A, plane 1 = B, S slots per plane (invalid slots carry
   auto-recentring, solvent flattening (the spherical mask), the frequency
   ladder (on the best class's resolution) and the search-type switch.
 
-``run`` does the init-time scale re-balance against a given model and
-then rounds until ``iter_max`` or STOP.
+``run`` does the init-time scale re-balance against a given model, then
+rounds until ``iter_max`` or STOP (writing each round's files when a
+``save_*_each_iter`` flag is set), then ``finalise``: the reconstruction
+at the Nyquist band without hemisphere averaging, the joined map of each
+class and the final file set (``save_outputs``).
 
 2D mode (``para.mode == "2d"``) refines in-plane angles against K class
 averages (2, K, n, n) with the bilinear 2D tables and the 2D insert.
 
 Not ported yet, and raising ``NotImplementedError`` where a run would
-reach them: the MKB insert, CTF search, provided mask volumes
-(``solvent_flatten`` uses the spherical mask, as the JAX package does when
-no mask was set), the final round (``run(finalise=True)``) and file
-output.
+reach them: the MKB insert, provided mask volumes (``set_mask``;
+``solvent_flatten`` uses the spherical mask, as the JAX package does when
+no mask was set) and the subtraction pipeline of the final round
+(``para.subtract``).
 """
 
 import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
@@ -44,6 +50,8 @@ from ..config import Para
 from ..dtypes import real_dtype, resolve_device
 from ..geom import quat
 from ..geom.symmetry import Symmetry
+from ..io.mrc import write_mrc
+from ..io.thu import make_table, write_thu
 from ..ops import brick as brick_ops
 from ..ops import ctf as ctf_ops
 from ..ops import fft as fft_ops
@@ -203,8 +211,6 @@ class Optimiser:
     def __init__(self, para: Para, device=None, draws=None):
         if para.mkb_kernel:
             raise _not_ported("the MKB insert kernel")
-        if para.c_search:
-            raise _not_ported("CTF search")
         # the kernels are picked by the tensors' device; no other choice
         # of the JAX package's backends exists here
         if para.fused_kernels != "auto":
@@ -306,6 +312,14 @@ class Optimiser:
     @property
     def best_quat(self):
         return self._from_plane(self.par["topR"])
+
+    @property
+    def best_trans(self):
+        return self._from_plane(self.par["topT"])
+
+    @property
+    def best_defocus(self):
+        return self._from_plane(self.par["topD"])
 
     @property
     def best_class(self):
@@ -425,7 +439,10 @@ class Optimiser:
 
     def _plane_ring_data(self, ring, ori=False, refined_defocus=False):
         """Observed pixels, CTF and sigma reciprocal on the ring,
-        (2, S, P) each."""
+        (2, S, P) each. ``ori`` reads the unmasked stack; the masked one,
+        dropped before the final round, is rebuilt when asked for."""
+        if not ori and self.imgs_ft is None:
+            self._rebuild_masked_stack()
         stack = self.imgs_ft_ori if ori else self.imgs_ft
         col, row, _ = self._ring_tensors(ring)
         nn = stack.shape[-1]
@@ -496,14 +513,18 @@ class Optimiser:
         else:
             min_phase = particle.MIN_N_PHASE_PER_ITER_LOCAL
             perturb_s = para.perturb_factor_s_local
+        ctf_search = self.ladder.search_type == SEARCH_TYPE_CTF
         bricks = self._bricks()
         dat, c, sig_rcp = self._plane_ring_data(ring)
-        draw = self.draws.phase_draws(self.iteration, (2, self.s_slots),
-                                      para.m_l_r, para.m_l_t, mode=para.mode)
+        draw = self.draws.phase_draws(
+            self.iteration, (2, self.s_slots), para.m_l_r, para.m_l_t,
+            mode=para.mode, n_d=self.par["d"].shape[2] if ctf_search else 0)
         st, nph = engine.local_search(
             bricks, col, row, pmask, dat, c, sig_rcp, self.par, draw,
             self._sym_quats(), para.perturb_factor_l, perturb_s,
-            pf=para.pf, n=self.n, min_phase=min_phase, mode=para.mode)
+            pf=para.pf, n=self.n, min_phase=min_phase, mode=para.mode,
+            cp=engine.pack_ctf(self.ctf_params) if ctf_search else None,
+            factor_d=para.perturb_factor_s_ctf, pixel_size=para.pixel_size)
         self.phase_counts = nph
         self.par = st
         self.scores = particle.compress_r(st)
@@ -693,6 +714,10 @@ class Optimiser:
                 -float(o[h, k, 1]), -float(o[h, k, 2]))).real
             for k in range(self.para.k)]) for h in range(2)])
 
+    def set_mask(self, vol):
+        """A provided reference mask volume: not ported yet."""
+        raise _not_ported("a provided mask volume (set_mask)")
+
     def solvent_flatten(self, use_mask=False):
         """Soft-mask every reference with zero background
         (src/Optimiser.cpp:7768-7990). Mask volumes cannot be set in the
@@ -791,14 +816,19 @@ class Optimiser:
         r_tab = min(-(-int(np.ceil(r_u)) // 8) * 8, self.n // 2 - 2)
         return brick_ops.crop_size(r_tab, self.para.pf)
 
-    def reconstruct(self, r_u=None):
+    def reconstruct(self, r_u=None, avg=True, final=False):
         """Gridding insert + fold, then per class grid-exact
         symmetrisation, per-half Wiener/C-balance, golden-standard FSC and
         hemisphere averaging (Model::compareTwoHemispheres,
         src/Model.cpp:307-850). With K > 1 classes one insert pass fills a
         K-fold accumulator while it holds at most FUSED_CLASS_BYTES; past
         that each class is inserted on its own with the other classes'
-        weights zeroed (``insert_fused`` records which)."""
+        weights zeroed (``insert_fused`` records which).
+
+        ``avg=False`` keeps the halves independent (the final round,
+        src/Optimiser.cpp:4124-4130); ``final`` also reconstructs each
+        class's joined map from the two halves' summed accumulators with
+        this round's FSC (saveMapJoin, :8832) into ``joined_maps``."""
         para = self.para
         dims, k_cls = self.dims, para.k
         r_u = self.ladder.r_u if r_u is None else r_u
@@ -846,6 +876,7 @@ class Optimiser:
         warm_w = getattr(self, "_w_warm", None) or {}
         fftc = self._ffts()[0]
         self._w_warm, offs, fscs, new_refs, self.half_maps = {}, [], [], [], []
+        joined = []
         for k in range(k_cls):
             if self.insert_fused:
                 f_ht, t_ht, offs_k = f_all[:, k], t_all[:, k], offs_all[:, k]
@@ -872,10 +903,20 @@ class Optimiser:
             fsc_new = self._golden_fsc(ft_a, ft_b)
             fscs.append(fsc_new.cpu().numpy())
             self.half_maps.append([vols2[0], vols2[1]])
+            if final:
+                joined.append(reconstructor.reconstruct_cropped(
+                    f_ht.sum(0), t_ht.sum(0), fsc_new, self.n, pf=para.pf,
+                    max_radius=r_u, join_half=True, blob_a=para.a,
+                    blob_alpha=para.alpha, dims=dims))
             _mark("wiener_fsc")
-            band = spectrum.res_p(fsc_new, 0.95, r_low=1)
-            new_refs.append(self._avg_hemi(ft_a, ft_b, band))
+            if avg:
+                band = spectrum.res_p(fsc_new, 0.95, r_low=1)
+                new_refs.append(self._avg_hemi(ft_a, ft_b, band))
+            else:
+                new_refs.append(vols2)
             _mark("avg")
+        if final:
+            self.joined_maps = joined
         self.reco_timing = reco_t
         self._update_insert_offsets(np.stack(offs, axis=1))  # (2, K, 4)
         self.fsc = np.stack(fscs)                            # (K, shells)
@@ -974,6 +1015,8 @@ class Optimiser:
             self.ladder.record_fsc_area(float(self.fsc[:, :max(res, 1)].sum()))
         self.ladder.elevate(res)
         st = self.ladder.transition(para.l_search, para.c_search)
+        if st == SEARCH_TYPE_CTF and search_type_in != SEARCH_TYPE_CTF:
+            self._seed_defocus_search()
         self.iteration += 1
         mark("post")
         nph = getattr(self, "phase_counts", None)
@@ -999,28 +1042,184 @@ class Optimiser:
                       {k: round(v, 3) for k, v in timing.items()})
         return rec
 
+    def _seed_defocus_search(self):
+        """Entering CTF search: spread each image's defocus support around
+        its current factor with stddev ``ctf_refine_s`` (Particle::initD),
+        drawn with NumPy from ``seed + 77`` as the JAX package draws it."""
+        s = self.para.ctf_refine_s
+        rng = np.random.default_rng(self.para.seed + 77)
+        d = self.par["d"]
+        d0 = self.par["topD"].cpu().numpy()[..., None]
+        self.par["d"] = self._t((d0 + rng.normal(0, s, tuple(d.shape)))
+                                .astype(np.float32))
+        self.par["sD"] = torch.full_like(self.par["sD"], s)
+
     def run(self, max_iter=None, finalise=True):
         """Rounds until ``max_iter`` (default ``para.iter_max``) or STOP,
         after the init-time scale re-balance against a given model
-        (correctScale(true, ...), src/Optimiser.cpp:531-560). Returns the
-        history. The final round and per-round file output are not ported
-        yet: ``finalise=True`` or a ``save_*_each_iter`` flag raises
-        before any round runs."""
+        (correctScale(true, ...), src/Optimiser.cpp:531-560), each round's
+        files written when a ``save_*_each_iter`` flag is set; then, with
+        ``finalise``, the final round (``finalise``). Returns the
+        history."""
         para = self.para
-        if finalise:
-            raise _not_ported("finalise (the final round)")
-        if para.save_ref_each_iter or para.save_thu_each_iter:
-            raise _not_ported("per-round file output (save_ref_each_iter, "
-                              "save_thu_each_iter)")
+        if finalise and para.subtract and self.dims == 3 and not para.skip_r:
+            # the final round would reach it: refuse before any round
+            raise _not_ported("the subtraction pipeline (para.subtract)")
         max_iter = max_iter or para.iter_max
         if (self.iteration == 0 and getattr(self, "_init_model_given", False)
                 and not para.skip_m and getattr(self, "sig", None)
                 is not None):
             self.correct_scale(init=True, group=False)
         for _ in range(max_iter):
-            if self.run_iteration()["search_type"] == SEARCH_TYPE_STOP:
+            rec = self.run_iteration()
+            if para.save_ref_each_iter or para.save_thu_each_iter:
+                self.save_outputs()
+            if rec["search_type"] == SEARCH_TYPE_STOP:
                 break
+        if finalise:
+            self.finalise()
         return self.history
+
+    def finalise(self):
+        """The post-loop pipeline (src/Optimiser.cpp:4075-4363): the masked
+        working stack and the brick tables are dropped, the reconstruction
+        runs at the Nyquist band (r_u = max_r) without hemisphere
+        averaging and with each class's joined map, then solvent flattening
+        and the final file set."""
+        para = self.para
+        if para.skip_r or not hasattr(self, "par"):
+            return
+        if para.subtract and self.dims == 3:
+            raise _not_ported("the subtraction pipeline (para.subtract)")
+        self.imgs_ft = None
+        self._brick_cache = None
+        t0 = time.perf_counter()
+        self.reconstruct(r_u=self.max_r, avg=False, final=True)
+        self.solvent_flatten(para.perform_mask)
+        self._sync()
+        self.final_timing = {"reconstruction": time.perf_counter() - t0,
+                             **{f"reco_{k}": v
+                                for k, v in self.reco_timing.items()}}
+        self.save_outputs(final=True)
+
+    # -------------------------------------------------------------- output
+
+    def _thu_quats(self):
+        """Image-order pose quaternions for .thu output; 2D (cos, sin)
+        support vectors become rotations about z (the reference's 2D
+        quaternion convention)."""
+        q = self.best_quat
+        if self.dims == 2:
+            phi = np.arctan2(q[:, 1], q[:, 0])
+            z = np.zeros_like(phi)
+            q = np.stack([np.cos(phi / 2), z, z, np.sin(phi / 2)], axis=-1)
+        return q
+
+    def _build_thu_table(self):
+        """The 27-column .thu table of every image's state."""
+        flat = {k: self._from_plane(v) for k, v in self.par.items()}
+        q = self._thu_quats()
+        cp = {k: self._from_plane(v) for k, v in self.ctf_params.items()}
+        xy = getattr(self, "coords_xy", np.zeros((self.n_imgs, 2)))
+        return make_table(
+            self.n_imgs,
+            particle_paths=getattr(
+                self, "particle_paths",
+                [f"{i + 1}@unknown.mrcs" for i in range(self.n_imgs)]),
+            micrograph_paths=getattr(
+                self, "micrograph_paths", ["none"] * self.n_imgs),
+            coordinate_x=xy[:, 0], coordinate_y=xy[:, 1],
+            voltage=cp["voltage"], defocus_u=cp["defocus_u"],
+            defocus_v=cp["defocus_v"], defocus_theta=cp["defocus_theta"],
+            cs=cp["cs"], amplitude_contrast=cp["amp_contrast"],
+            phase_shift=cp["phase_shift"],
+            group_id=self.group_ids + 1, class_id=flat["c"],
+            quat_0=q[:, 0], quat_1=q[:, 1], quat_2=q[:, 2], quat_3=q[:, 3],
+            k1=flat["k1"], k2=flat["k2"], k3=flat["k3"],
+            translation_x=flat["topT"][:, 0],
+            translation_y=flat["topT"][:, 1],
+            std_translation_x=flat["s0"], std_translation_y=flat["s1"],
+            defocus_factor=flat["topD"], std_defocus_factor=flat["sD"],
+            score=self._from_plane(self.scores))
+
+    def save_outputs(self, final=False):
+        """Per-round and final files with the reference's exact naming
+        (src/Optimiser.cpp:8250-9149), into ``para.output_directory``:
+        Reference_{k}_{A,B}_{tag}.mrc (2D: the class-average stack
+        Reference_{tag}.mrcs) and, when final, each class's joined map
+        Reference_{k}_Final.mrc; FSC_, Class_Info_ and, per round, Sig_,
+        Tau_ and Timing_{tag}.txt; Meta_{tag}.thu. ``tag`` is Final or
+        Round_{iteration:03d}."""
+        para = self.para
+        out = para.output_directory or "./"
+        prefix = os.path.join(out, para.dst_prefix + para.output_file_prefix)
+        tag = "Final" if final else f"Round_{self.iteration:03d}"
+        has_fsc = hasattr(self, "fsc")
+        distr = self.refresh_class_distr() if has_fsc else None
+        os.makedirs(out, exist_ok=True)
+        host = lambda x: x.detach().cpu().numpy()
+        if para.save_ref_each_iter or final:
+            if self.dims == 2:
+                write_mrc(f"{prefix}Reference_{tag}.mrcs",
+                          host((self.refs[0] + self.refs[1]) / 2),
+                          voxel_size=para.pixel_size)
+            else:
+                joined = getattr(self, "joined_maps", None)
+                for k in range(para.k):
+                    if final:
+                        fin = (joined[k] if joined is not None
+                               else (self.refs[0, k] + self.refs[1, k]) / 2)
+                        write_mrc(f"{prefix}Reference_{k:03d}_Final.mrc",
+                                  host(fin), voxel_size=para.pixel_size)
+                    for h, hn in ((0, "A"), (1, "B")):
+                        write_mrc(f"{prefix}Reference_{k:03d}_{hn}_{tag}.mrc",
+                                  host(self.refs[h, k]),
+                                  voxel_size=para.pixel_size)
+        inv_res = lambda i, size: i / (size * para.pixel_size)
+        if has_fsc:
+            # saveFSC (src/Optimiser.cpp:9018-9056): shell, 1/A, one FSC
+            # column per class
+            with open(f"{prefix}FSC_{tag}.txt", "w") as f:
+                for i in range(1, min(self.ladder.r_u, self.fsc.shape[1])):
+                    cols = "".join(f"   {self.fsc[k][i]:10.6f}"
+                                   for k in range(para.k))
+                    f.write(f"{i:05d}   {inv_res(i, self.n):10.6f}{cols}\n")
+            # saveClassInfo (:9058-9090): class, 1/A at the report
+            # threshold, class fraction
+            with open(f"{prefix}Class_Info_{tag}.txt", "w") as f:
+                for k in range(para.k):
+                    res = spectrum.res_p(torch.as_tensor(self.fsc[k]),
+                                         para.thres_report_fsc, r_low=1)
+                    f.write(f"{k:05d}   {inv_res(res, self.n):10.6f}"
+                            f"   {distr[k]:10.6f}\n")
+        if getattr(self, "sig", None) is not None and not final:
+            # saveSig (:9091-9120): the lead image's group, per hemisphere
+            sig = host(self.sig)
+            g0 = [int(self.groups_plane[h, 0]) for h in (0, 1)]
+            for h, hn in ((0, "A"), (1, "B")):
+                with open(f"{prefix}Sig_{hn}_{tag}.txt", "w") as f:
+                    for i in range(self.max_r):
+                        f.write(f"{i:05d}   {inv_res(i, self.n):10.6f}"
+                                f"   {sig[g0[h], i]:10.6f}\n")
+        if getattr(self, "tau", None) is not None and not final:
+            # saveTau (:9149-9180): shells in padded units
+            for hn in ("A", "B"):
+                with open(f"{prefix}Tau_{hn}_{tag}.txt", "w") as f:
+                    for i in range(1, self.max_r * para.pf - 1):
+                        f.write(f"{i:05d}   "
+                                f"{inv_res(i, self.n * para.pf):10.6f}"
+                                f"   {self.tau[0][i]:10.6f}\n")
+        if self.history and self.history[-1].get("timing") and not final:
+            rec = self.history[-1]
+            with open(f"{prefix}Timing_{tag}.txt", "w") as f:
+                for name, sec in rec["timing"].items():
+                    f.write(f"{name:24s} {sec:10.3f} s\n")
+                if rec.get("n_phase"):
+                    f.write(f"{'n_phase_mean':24s} {rec['n_phase'][0]:10.2f}"
+                            "\n")
+                    f.write(f"{'n_phase_max':24s} {rec['n_phase'][1]:10d}\n")
+        if para.save_thu_each_iter or final:
+            write_thu(f"{prefix}Meta_{tag}.thu", self._build_thu_table())
 
     def _refresh_rotation_change(self):
         """refreshRotationChange (src/Optimiser.cpp:5386-5482):

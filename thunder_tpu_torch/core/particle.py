@@ -1,4 +1,4 @@
-"""The particle filter over (class, rotation, translation) (port of
+"""The particle filter over (class, rotation, translation, defocus) (port of
 ``thunder_tpu.core.particle``; include/Particle.h, src/Particle.cpp, the
 phase rule of src/Optimiser.cpp:1510-1614).
 
@@ -36,6 +36,7 @@ N_PHASE_WITH_NO_VARI_DECREASE = 1
 PARTICLE_FILTER_DECREASE_FACTOR = 0.95
 
 CHI2_P_1_DF2 = 0.3934693402873666  # gsl_cdf_chisq_P(1, 2)
+CHI2_P_1_DF1 = 0.6826894921370859  # gsl_cdf_chisq_P(1, 1)
 
 
 def make_state(shape, n_r, n_t, n_d=1, device=None):
@@ -111,6 +112,10 @@ def peak_idx_t(n_t):
     return min(n_t - 1, int(n_t * CHI2_P_1_DF2))
 
 
+def peak_idx_d(n_d):
+    return min(n_d - 1, int(n_d * CHI2_P_1_DF1))
+
+
 def symmetrise_r(r, sym_quats, anchor):
     """Map support rotations (..., nR, 4) to the group counterpart nearest
     ``anchor`` (..., 4) (Particle::symmetrise)."""
@@ -148,6 +153,11 @@ def cal_vari_t(t):
     return s[..., 0], s[..., 1]
 
 
+def cal_vari_d(d):
+    """sD: population stddev of the defocus support (..., nD)."""
+    return torch.std(d, dim=-1, correction=0)
+
+
 def perturb_r(r, k1, k2, k3, pf, normals, sym_quats=None):
     """Perturb support rotations in the tangent frame of their ACG mean by
     ACG(pf^2 min(1, k)) samples from ``normals`` (..., nR, 4), then
@@ -183,13 +193,20 @@ def perturb_t(t, s0, s1, pf, normals):
     return t + normals * s * pf
 
 
+def perturb_d(d, s, pf, normals):
+    """d + normals * sD * pf; d and normals (..., nD)."""
+    return d + normals * s[..., None] * pf
+
+
 def update_from_likelihood(state, u_r, u_t, u0_r, u0_t, anchor_idx,
-                           sym_quats=None, mode="3d"):
+                           sym_quats=None, mode="3d", u_d=None, u0_d=None):
     """One phase's posterior update (src/Optimiser.cpp:1404-1496):
     peak-clip with the per-image factors, rank-1st, symmetrised variance
     of the CURRENT support, systematic resample back to the support sizes.
     u0_r/u0_t: (...,) resample uniforms; anchor_idx: (...,) support index
-    (unused in 2D mode).
+    (unused in 2D mode). With the defocus marginal ``u_d`` (..., nD) (CTF
+    search) the defocus support is updated the same way: topD, sD, the
+    resample of d with the uniforms ``u0_d`` (...,) and uniform wD.
     """
     n_r = state["r"].shape[-2]
     n_t = state["t"].shape[-2]
@@ -205,7 +222,7 @@ def update_from_likelihood(state, u_r, u_t, u0_r, u0_t, anchor_idx,
     s0, s1 = cal_vari_t(state["t"])
     r_new = systematic_resample(state["wR"] * u_r, r_v, n_r, u0_r)
     t_new = systematic_resample(state["wT"] * u_t, state["t"], n_t, u0_t)
-    return {
+    out = {
         **state,
         "r": r_new, "t": t_new,
         "wR": torch.full_like(state["wR"], 1.0 / n_r),
@@ -213,6 +230,16 @@ def update_from_likelihood(state, u_r, u_t, u0_r, u0_t, anchor_idx,
         "topR": top_r, "topT": top_t,
         "k1": k1, "k2": k2, "k3": k3, "s0": s0, "s1": s1,
     }
+    if u_d is not None:
+        d = state["d"]
+        n_d = d.shape[-1]
+        u_d = keep_half_height_peak(u_d, state["pfD"][..., None])
+        out["topD"] = _take(d, torch.argmax(u_d, dim=-1)[..., None])[..., 0]
+        out["sD"] = cal_vari_d(d)
+        out["d"] = systematic_resample(state["wD"] * u_d, d[..., None], n_d,
+                                       u0_d)[..., 0]
+        out["wD"] = torch.full_like(state["wD"], 1.0 / n_d)
+    return out
 
 
 def vari_shrank(state, prev, mode="3d"):

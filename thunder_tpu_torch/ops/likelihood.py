@@ -280,26 +280,41 @@ def global_search_weights_fused(dat, ctf, sig_rcp, proj, tra, prior_r=None,
                       pt0 if prior_t is None else prior_t)
 
 
-def local_search_weights(dat, ctf, sig_rcp, proj, tra, w_r, w_t,
-                         pixel_mask=None):
+def local_search_weights(dat, ctf, sig_rcp, proj, tra, w_r, w_t, w_d=None,
+                         ctf_d=None, pixel_mask=None):
     """Per-image local-search marginals of one particle-filter phase
-    (src/Optimiser.cpp:1294-1402), the exact block log-sum-exp.
+    (src/Optimiser.cpp:1294-1402), the exact block log-sum-exp over the
+    (defocus, rotation, translation) support.
 
     dat/ctf/sig_rcp: (B, P); proj: (B, R, P); tra: (B, T, P);
-    w_r (B, R), w_t (B, T). Returns (u_r (B, R), u_t (B, T)). The
-    defocus (CTF search) axis of the JAX function is not ported yet."""
+    w_r (B, R), w_t (B, T), w_d (B, D) the support weights (uniform when
+    None); ctf_d (B, D, P) the CTF at each defocus point (CTF search), or
+    None for D = 1 with ``ctf``. Returns (u_r (B, R), u_t (B, T),
+    u_d (B, D)). The static defocus axis is looped, so the largest
+    temporary stays (B, T, P)."""
     pm = 1.0 if pixel_mask is None else pixel_mask
+    if ctf_d is None:
+        ctf_d = ctf[:, None, :]
     p2 = proj.real ** 2 + proj.imag ** 2
-    q = (-2.0 * sig_rcp * ctf * pm) * torch.conj(dat)
-    e = sig_rcp * ctf ** 2 * pm
-    term2 = torch.einsum("bp,brp->br", e, p2)
-    qt = q[:, None, :] * tra                                  # (B, T, P)
-    term1 = (torch.einsum("btp,brp->brt", qt.real, proj.real)
-             - torch.einsum("btp,brp->brt", qt.imag, proj.imag))
-    log_l = term1 + term2[..., None]                          # (B, R, T)
-    base = torch.amax(log_l, dim=(1, 2), keepdim=True)
+    dat_c = torch.conj(dat)
+    log_l = []
+    for d in range(ctf_d.shape[1]):
+        c_d = ctf_d[:, d, :]
+        q = (-2.0 * sig_rcp * c_d * pm) * dat_c
+        e = sig_rcp * c_d ** 2 * pm
+        term2 = torch.einsum("bp,brp->br", e, p2)
+        qt = q[:, None, :] * tra                              # (B, T, P)
+        term1 = (torch.einsum("btp,brp->brt", qt.real, proj.real)
+                 - torch.einsum("btp,brp->brt", qt.imag, proj.imag))
+        log_l.append(term1 + term2[..., None])                # (B, R, T)
+    log_l = torch.stack(log_l, dim=1)                         # (B, D, R, T)
+    base = torch.amax(log_l, dim=(1, 2, 3), keepdim=True)
     w = torch.exp(log_l - base)
-    # D = 1 with w_d = 1: the JAX einsums reduce to these two
-    u_r = torch.einsum("brt,bt->br", w, w_t)
-    u_t = torch.einsum("brt,br->bt", w, w_r)
-    return u_r, u_t
+    if w_d is None:
+        w_d = torch.full(w.shape[:2], 1.0 / w.shape[1], dtype=w.dtype,
+                         device=w.device)
+    w_rt = torch.einsum("bdrt,bd->brt", w, w_d)
+    u_r = torch.einsum("brt,bt->br", w_rt, w_t)
+    u_t = torch.einsum("brt,br->bt", w_rt, w_r)
+    u_d = torch.einsum("bdr,br->bd", torch.einsum("bdrt,bt->bdr", w, w_t), w_r)
+    return u_r, u_t, u_d

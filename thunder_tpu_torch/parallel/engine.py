@@ -31,9 +31,13 @@ from ..dtypes import real_dtype
 from ..geom import quat
 from ..ops.brick import _corners2, fold_insert2
 from ..ops import brick, likelihood
+from ..ops import ctf as ctf_ops
 from ..ops.insert import insert_update, new_table, rows_pad
 from ..ops.translate import translation_phase
 from ..core import particle, projector
+
+CTF_FIELDS = ("voltage", "defocus_u", "defocus_v", "defocus_theta", "cs",
+              "amp_contrast", "phase_shift")
 
 # samples (images x poses x pixels) per fused gather in the phase loop:
 # bounds the (samples, 8)-row temporaries to ~1 GB
@@ -134,11 +138,19 @@ def scan_init(bricks, rots, quats, tra, trans, col, row, pmask, dat, ctf,
 
 # ------------------------------------------------------------ local search
 
+def pack_ctf(cp):
+    """CTF parameter dict of (...,) tensors -> (..., 7) packed tensor."""
+    return torch.stack([cp[f].to(real_dtype) for f in CTF_FIELDS], dim=-1)
+
+
 def _phase_step(st, dat, ctf, sig_rcp, table, dr, flat, mc, n_vox, col, row,
-                pmask, sym_quats, factor, pf, n, mode):
+                pmask, sym_quats, factor, pf, n, mode, phase, ctf_search):
     """One phase for a batch of ACTIVE images (flattened batch axis):
     perturb -> fused-class projection -> block log-sum-exp -> posterior
-    update. Returns (new state, shrank (B,) bool)."""
+    update. ``ctf_search`` (cp (B, 7) packed CTF parameters, factor_d,
+    pixel_size) adds the defocus axis: d perturbed from phase 1 on, the
+    CTF at every defocus point, pfD set at phase 0. Returns (new state,
+    shrank (B,) bool)."""
     if mode == "2d":
         r = particle.perturb_r_2d(st["r"], st["k1"], factor, dr)
     else:
@@ -147,21 +159,41 @@ def _phase_step(st, dat, ctf, sig_rcp, table, dr, flat, mc, n_vox, col, row,
     t = particle.perturb_t(st["t"], st["s0"], st["s1"], factor,
                            dr["normals_t"])
     st = {**st, "r": r, "t": t}
+    ctf_d = u0_d = None
+    if ctf_search is not None:
+        cp, factor_d, pixel_size = ctf_search
+        if phase > 0:
+            # the phase-0 support is the loaded one (src/Optimiser.cpp:
+            # 1191-1209)
+            st["d"] = particle.perturb_d(st["d"], st["sD"], factor_d,
+                                         dr["normals_d"])
+        ctf_d = ctf_ops.ctf_pixels(
+            col, row, n, pixel_size, *(cp[:, i:i + 1] for i in range(7)),
+            defocus_factor=st["d"])                          # (B, nD, P)
+        u0_d = dr["u0_d"]
     coords = _slice_coords(_rot_mats(r, mode), col, row, pf)
     proj = fused_class_gather(flat, coords, table, mc, n_vox)
     tra = translation_phase(col, row, t[..., 0], t[..., 1], n)
-    u_r, u_t = likelihood.local_search_weights(
-        dat, ctf, sig_rcp, proj, tra, st["wR"], st["wT"], pixel_mask=pmask)
+    u_r, u_t, u_d = likelihood.local_search_weights(
+        dat, ctf, sig_rcp, proj, tra, st["wR"], st["wT"],
+        w_d=st["wD"] if ctf_d is not None else None, ctf_d=ctf_d,
+        pixel_mask=pmask)
+    if ctf_d is None:
+        u_d = None
+    elif phase == 0:
+        # setPeakFactor of the defocus support (src/Optimiser.cpp:1430)
+        st["pfD"] = particle.cal_peak_factor(
+            u_d, particle.peak_idx_d(u_d.shape[-1]))
     new = particle.update_from_likelihood(
         st, u_r, u_t, dr["u0_r"], dr["u0_t"], dr.get("anchor"),
-        sym_quats=sym_quats, mode=mode)
+        sym_quats=sym_quats, mode=mode, u_d=u_d, u0_d=u0_d)
     return new, particle.vari_shrank(new, st, mode=mode)
 
 
 def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
                  phase_draws, sym_quats, factor_l, factor_s, *, pf, n,
                  min_phase, max_phase=particle.MAX_N_PHASE_PER_ITER,
-                 mode="3d"):
+                 mode="3d", cp=None, factor_d=0.0, pixel_size=None):
     """Phase B: the particle-filter phase loop with the reference's
     termination rule (src/Optimiser.cpp:1138-1660), all images of both
     halves batched; finished images drop out of later phases (their state
@@ -171,6 +203,11 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
     normals_r (2, S, nR, 4), normals_t (2, S, nT, 2), u0_r, u0_t (2, S),
     anchor (2, S); in 2D mode the von Mises uniforms u_z, u_2 (2, S,
     ROUNDS, nR), u_s, theta (2, S, nR) replace normals_r and anchor.
+    ``cp`` (2, S, 7) packed CTF parameters (``pack_ctf``) make the round a
+    CTF search: the defocus support d (2, S, nD) is perturbed by
+    ``factor_d`` sD with the draws' normals_d (2, S, nD), the CTF is
+    evaluated per defocus point at ``pixel_size``, and d is resampled
+    with u0_d (2, S).
     Returns (state, phases run per image (2, S))."""
     flat, mc, n_vox = _flat_tables(bricks)
     k_cls = bricks.shape[1]
@@ -180,6 +217,7 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
     st = {k: fl(v).clone() for k, v in state.items()}
     table = fl(_table_index(state["c"], k_cls))
     d_f, c_f, s_f = fl(dat), fl(ctf), fl(sig_rcp)
+    cp_f = None if cp is None else fl(cp)
     n_r = st["r"].shape[1]
     per_img = n_r * col.shape[0]
     sub = max(1, GATHER_BUDGET // per_img)
@@ -201,7 +239,8 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
                 {k: v[ix] for k, v in st.items()}, d_f[ix], c_f[ix],
                 s_f[ix], table[ix], {k: v[ix] for k, v in dr.items()},
                 flat, mc, n_vox, col, row, pmask, sym_quats, factor, pf, n,
-                mode)
+                mode, phase,
+                None if cp_f is None else (cp_f[ix], factor_d, pixel_size))
             for k, v in new.items():
                 st[k][ix] = v
             shrank[a0:a0 + sub] = shr
