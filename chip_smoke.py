@@ -4,6 +4,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py            # everything, on one card
     python3 chip_smoke.py --kernels  # build + kernel checks only
+    python3 chip_smoke.py --cli      # build + path D (phase 9) only
+    python3 chip_smoke.py --cli-study  # build + path D's run, 10 seeds
     python3 chip_smoke.py --data-study  # + the round on bench.py's data
 
 Phases, each printing a flushed progress line with elapsed seconds:
@@ -80,8 +82,42 @@ Phases, each printing a flushed progress line with elapsed seconds:
    written, the maps read back through ``read_mrc`` at 160^3 with voxel
    1.32, and Meta_Final.thu through ``read_thu`` with 256 x 27 values and
    ``best_defocus`` in its defocus-factor column;
-9. a JSON line of per-kernel numbers (launches summed over the rounds of
-   phases 5a-b, 6, 7 and 8, and per round; K1's readings at the
+9. path D, the command-line entry point (``thunder_tpu_torch.cli.main``
+   called in this process, so that the counts see it) on path C's data
+   written as a user hands it over, into a fresh temporary directory:
+   stack.mrcs (256 x 160^2, 26 MB), particles.thu (absolute particle
+   paths, micrograph names and coordinates, the unscaled defocus),
+   init.mrc (the phantom); particles.thu round-tripped through
+   ``thu2star`` / ``star2thu`` and the run fed the round-tripped table;
+   a run.json of configs/demo.json's keys with bench.py's sizes
+   (``cli_config``: 160 px, C4, 1024 scan points, 125 x 9 x 9 local
+   support, 100 insert draws) and CLI_ITERS rounds. ``cli run``: every
+   round held to ROUND_ANG_MAX / ROUND_RES_MIN and to its launches (K1 in
+   global rounds only, K2 four times), the final round's four K2
+   launches, the printed history, the file set the JAX package writes
+   (and thunder.log) read back, Meta_Final.thu carrying the dataset's
+   particle paths, its shifts within META_TRANS_MAX of the true ones
+   (median), their mean error under META_TRANS_BIAS_MAX and their slope
+   on the true ones within META_TRANS_SLOPE on each axis.
+   Then a resume from Meta_Final.thu (Global Search false, subtraction
+   on, one round): its entry state the table's (``load_poses``), its
+   round held to the same bars, K2 also launched by
+   the subtraction's second Nyquist reconstruction,
+   Subtract_Rank_000000.mrcs (256 x 4 images) and Meta_Subtract.thu read
+   back, the subtracted images' variance inside the mask radius over
+   outside it under SUB_RESID_MAX, and the controls of
+   ``subtraction_controls`` (the phantom subtracted at the truth under
+   SUB_TRUTH_MAX). The same resume with its reference at the run's final
+   resolution, held to RESUME_HI_ANG_MAX and SUB_HI_MAX (the band of the
+   first resume's round). Then every other subcommand once
+   on the run's files, each read back: ``reconstruct`` (FSC against the
+   run's final map), ``postprocess`` (its FSC near the run's final FSC),
+   ``genmask``, ``genmask_shell``, ``lowpass``, ``bfactor``, ``mask``,
+   ``average``, ``minus``, ``resize`` 160 -> 128, ``alignz``, ``view
+   --slices``, ``project``, ``select --keep``; each one's seconds, the
+   run's and the resume's, and their peak memory, beside the card line;
+10. a JSON line of per-kernel numbers (launches summed over the rounds of
+   phases 5a-b, 6, 7, 8 and 9, and per round or run; K1's readings at the
    class-stacked shapes; K2's on the fused class table and on a
    final-band chunk), the card line again, and the final status line
    {"ok": true, "device": {...}}.
@@ -100,14 +136,22 @@ then both classification paths from the JAX package's default of
 identical references, three global rounds each, with purity and
 resolution per round (no bounds).
 
+``--cli-study`` runs, after the build and nothing else, path D's ``cli
+run``, the reconstruct and postprocess tools and its two resumes on the
+same files once per seed of ``cli_study`` (a repeated seed differs only by
+the atomic order of the kernels' sums), without bounds, and prints each
+run's readings of what path D holds to bars and their ranges: the spread
+those bars are set from.
+
 Any failed check raises, so the script exits non-zero and prints no result.
-Path C's files go to a temporary directory outside the repository, removed
-at its end.
+Path C's and path D's files go to temporary directories outside the
+repository, removed at their ends.
 It imports nothing of JAX or of the JAX package: the synthetic data are
 made with NumPy and the port's own projector, CTF and translation code.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -170,6 +214,46 @@ CTF_ATOMS = 150
 CTF_DFAC_ERR_MAX = 0.004
 FINAL_FSC_SHELLS = 26
 FINAL_MC = 317
+# path D, the command-line entry point on path C's data written to files:
+# CLI_ITERS rounds before the final round, all global (a .thu written
+# after a local round stores only the shifts since its re-centring, as in
+# the JAX package: ROADMAP Queue 3). The bars are set from the spread of
+# 30 runs of ``--cli-study`` (11 at this script's seed, whose runs differ
+# only by the kernels' atomic order, and 19 other seeds; NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md), each bar at least five of their standard
+# deviations past their mean. Meta_Final.thu's shifts read 0.349-0.516 px
+# from the true ones (median; 0.522 in one full smoke; META_TRANS_MAX),
+# their mean error at most 0.141 px an axis (META_TRANS_BIAS_MAX) and
+# their slope on the true ones 0.825-1.001 (META_TRANS_SLOPE: below 1, the
+# stored shifts fall a little short of large true ones): a sign, scale
+# or half-pixel fault of the stored shifts reads far outside these. The
+# resume's local round, its reference low-passed to 25 A, read 2.50-3.75
+# deg and is held to ROUND_ANG_MAX as every round; the same resume at the
+# run's final resolution read 0.227-0.322 deg (RESUME_HI_ANG_MAX). The
+# subtracted images' variance inside the mask radius over outside it read
+# 4.06-4.36 (the input stack 15.09: the particle's signal over the noise;
+# SUB_RESID_MAX) and 4.28-5.14 in the resume at the run's resolution
+# (SUB_HI_MAX). The subtraction's own norm correction explains them: at
+# the true poses, shifts and defocus factors the phantom leaves
+# 0.990-0.992 with each image at its own scale, and 0.994 at one scale
+# once the correction's factors (spread 36 %) are undone (SUB_TRUTH_MAX).
+# The reconstruct tool's map (no CTF correction, as in the JAX package)
+# read FSC 0.9905-0.9922 at least against the run's final map over
+# shells 1 .. TOOL_RECON_SHELLS. Postprocess's FSC (its own mask and
+# phase fields) read 0.021-0.032 from the run's final FSC at most over
+# shells 1 .. the run's FSC-0.143 shell (TOOL_POST_FSC_TOL); the two
+# curves are flat where they cross 0.143, so its shell read 0-8 above
+# the run's
+CLI_ITERS = 3
+TOOL_RECON_SHELLS = 8
+TOOL_POST_FSC_TOL = 0.06
+META_TRANS_MAX = 0.7
+META_TRANS_BIAS_MAX = 0.3
+META_TRANS_SLOPE = (0.7, 1.1)
+RESUME_HI_ANG_MAX = 0.6
+SUB_RESID_MAX = 4.6
+SUB_HI_MAX = 6.0
+SUB_TRUTH_MAX = 1.05
 
 
 def log(msg):
@@ -779,13 +863,14 @@ def phantom(n, rng, symmetric=True, atoms=0):
     return vol
 
 
-def project_stack(dev, vol, b, rng, noise, trans_sd=2.0, dfac=None):
+def project_stack(dev, vol, b, rng, noise, trans_sd=2.0, dfac=None,
+                  with_trans=False):
     """``b`` images of ``vol`` at uniform random poses: projected,
     CTF-modulated, shifted by N(0, trans_sd) px, plus Gaussian noise of
     ``noise`` x the clean stack's std. ``dfac`` (b,) scales each image's
     defocus_u and defocus_v in its CTF (a true defocus factor); the CTF
     parameters returned are the unscaled ones. Returns (stack, quats, CTF
-    params)."""
+    params), and the shifts (b, 2) after them with ``with_trans``."""
     import numpy as np
     import torch
 
@@ -827,27 +912,29 @@ def project_stack(dev, vol, b, rng, noise, trans_sd=2.0, dfac=None):
     stack = np.concatenate(chunks).astype(np.float32)
     stack += rng.normal(0, noise * stack.std(), stack.shape).astype(
         np.float32)
-    return stack, q, cp
+    return (stack, q, cp, tr) if with_trans else (stack, q, cp)
 
 
 def synthetic_dataset(dev, n, b, seed=0, noise=1.0, symmetric=True,
-                      dfac_sd=0.0, atoms=0):
+                      dfac_sd=0.0, atoms=0, with_trans=False):
     """bench.py's workload made with NumPy + the port: a 6-blob phantom
     (``phantom``) projected at random poses, CTF-modulated, shifted, plus
     Gaussian noise of ``noise`` x the clean stack's std
     (``project_stack``). With ``dfac_sd`` > 0 each image's CTF is made at a
     true defocus factor 1 + eps, eps ~ N(0, dfac_sd) from the seed, and the
-    factors come back as a fifth value."""
+    factors come back as a fifth value; ``with_trans`` appends the true
+    shifts."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     vol = phantom(n, rng, symmetric, atoms)
     if not dfac_sd:
-        stack, q, cp = project_stack(dev, vol, b, rng, noise)
-        return vol, stack, q, cp
+        out = project_stack(dev, vol, b, rng, noise, with_trans=with_trans)
+        return (vol,) + out
     dfac = 1.0 + rng.normal(0, dfac_sd, b)
-    stack, q, cp = project_stack(dev, vol, b, rng, noise, dfac=dfac)
-    return vol, stack, q, cp, dfac
+    stack, q, cp, *tr = project_stack(dev, vol, b, rng, noise, dfac=dfac,
+                                      with_trans=with_trans)
+    return (vol, stack, q, cp, dfac, *tr)
 
 
 def bench_para(n=160):
@@ -873,14 +960,19 @@ def pin_local(opt, r=R_LOCAL):
 
 def pose_error(opt, q_true):
     """Per-image angle (deg) from the top pose to the nearest C4 mate of
-    the true pose. The scan reduces rotations into the C4 fundamental
-    domain by LEFT multiplication (symmetry_counterpart: conj(g) q), and a
+    the true pose (``pose_error_q``)."""
+    return pose_error_q(opt.best_quat, q_true)
+
+
+def pose_error_q(q_est, q_true):
+    """Per-image angle (deg) from ``q_est`` to the nearest C4 mate of the
+    true pose. The scan reduces rotations into the C4 fundamental domain
+    by LEFT multiplication (symmetry_counterpart: conj(g) q), and a
     C4-symmetric reference projects alike at q and g q."""
     import numpy as np
 
     from thunder_tpu_torch.geom.symmetry import Symmetry
 
-    q_est = opt.best_quat
     mates = np.concatenate([[[1.0, 0, 0, 0]], Symmetry("C4").quat])
     best = np.zeros(len(q_est))
     w2, x2, y2, z2 = q_true.T
@@ -1404,6 +1496,752 @@ def ctf_study(dev):
     shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# ------------------------------------------- the command-line entry point
+
+def cli_config(data_dir, db, out, g_search=True, iters=CLI_ITERS,
+               subtract=False, n=160, init_res=25.0):
+    """configs/demo.json as users write it, with bench.py's sizes (160 px,
+    pixel 1.32 A, mask 75 A, translation 2 px, initial resolution
+    ``init_res`` A (bench.py's 25), C4, 1024 scan points, 125 x 9 x 9 local
+    support, 100 insert draws; a smaller box ``n`` scales the mask), the
+    dataset's paths, ``iters`` rounds and the given search and subtraction
+    switches."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "demo.json")) as f:
+        cfg = json.load(f)
+    basic, adv = cfg["Basic"], cfg["Advanced"]
+    basic.update({
+        "Global Search": g_search, "Size of Image": n,
+        "Pixel Size (Angstrom)": 1.32,
+        "Radius of Mask on Images (Angstrom)": 75.0 * n / 160,
+        "Estimated Translation (Pixel)": 2,
+        "Initial Resolution (Angstrom)": init_res, "Symmetry": "C4",
+        "Initial Model": f"{data_dir}/init.mrc",
+        ".thu File Storing Paths and CTFs of Images": str(db),
+        "Path of Particles": data_dir, "Path of Output": out})
+    adv.update({
+        "Max Number of Iteration": iters,
+        "Number of Sampling Points for Scanning in Global Search (3D)": 1024,
+        "Number of Sampling Points of Rotation in Local Search (3D)": 125,
+        "Number of Sampling Points of Translation in Local Search": 9,
+        "Number of Sampling Points of Defocus in Local Search": 9,
+        "Number of Sampling Points Used in Reconstruction": 100})
+    cfg["Subtract"]["Subtract Masked Region Reference From Images"] = subtract
+    return cfg
+
+
+def write_cli_dataset(dev, data_dir, n=160, b=N_PARTICLES):
+    """Path C's data (phantom with atoms, true defocus factors) written as
+    a user hands it over: stack.mrcs, particles.thu (absolute particle
+    paths, two micrograph names, coordinates, the unscaled defocus) and
+    init.mrc (the phantom). Returns (the stack, the truth: phantom
+    ``vol``, quats ``q``, shifts ``tr`` and defocus factors ``dfac``)."""
+    import numpy as np
+
+    from thunder_tpu_torch.io import write_mrc
+    from thunder_tpu_torch.io.thu import make_table, write_thu
+
+    vol, stack, q_true, cp, dfac, tr = synthetic_dataset(
+        dev, n, b, noise=NOISE, dfac_sd=CTF_EPS_SD, atoms=CTF_ATOMS,
+        with_trans=True)
+    write_mrc(f"{data_dir}/stack.mrcs", stack, voxel_size=1.32)
+    write_mrc(f"{data_dir}/init.mrc", vol, voxel_size=1.32)
+    rng = np.random.default_rng(3)
+    t = make_table(
+        b, particle_paths=[f"{i + 1}@{data_dir}/stack.mrcs" for i in range(b)],
+        micrograph_paths=[f"mic_{i % 2:03d}.mrc" for i in range(b)],
+        coordinate_x=rng.uniform(0, 4096, b),
+        coordinate_y=rng.uniform(0, 4096, b), voltage=cp["voltage"],
+        defocus_u=cp["defocus_u"], defocus_v=cp["defocus_v"],
+        defocus_theta=cp["defocus_theta"], cs=cp["cs"],
+        amplitude_contrast=cp["amp_contrast"], phase_shift=cp["phase_shift"])
+    write_thu(f"{data_dir}/particles.thu", t)
+    return stack, dict(vol=vol, q=q_true, tr=tr, dfac=dfac)
+
+
+def cli_call(argv):
+    """``thunder_tpu_torch.cli.main(argv)`` in this process (so that the
+    launch counters see it); returns (seconds, what it printed)."""
+    import contextlib
+    import io
+
+    from thunder_tpu_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli([str(a) for a in argv])
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def counted_rounds(q_true, rounds):
+    """Wrap ``Optimiser.run_iteration`` so that each round of a CLI run is
+    recorded in ``rounds``: its search type and top poses on entry,
+    launches, wall time, record and median pose error (C4 mates allowed).
+    Returns the undo."""
+    import numpy as np
+
+    from thunder_tpu_torch.core.optimiser import Optimiser
+    from thunder_tpu_torch.ops import insert, likelihood
+
+    orig = Optimiser.run_iteration
+
+    def run_iteration(self):
+        st_in = self.ladder.search_type
+        entry = dict(quat=self.best_quat, trans=self.best_trans,
+                     defocus=self.best_defocus)
+        before = (likelihood.LAUNCHES["scan_fused"],
+                  insert.LAUNCHES["insert_update"])
+        t0 = time.perf_counter()
+        rec = orig(self)
+        self._sync()
+        rounds.append(dict(
+            search_type_in=st_in, entry=entry,
+            wall=time.perf_counter() - t0, rec=rec,
+            launches={"global_scan": likelihood.LAUNCHES["scan_fused"]
+                      - before[0], "insert_update":
+                      insert.LAUNCHES["insert_update"] - before[1]},
+            pose_err=float(np.median(pose_error(self, q_true)))))
+        return rec
+
+    Optimiser.run_iteration = run_iteration
+    return lambda: setattr(Optimiser, "run_iteration", orig)
+
+
+def cli_run(dev, cfg_path, q_true, label, subtract=False):
+    """One ``cli run`` with the counts set to 0 just before it and read
+    just after; every round held to ROUND_ANG_MAX / ROUND_RES_MIN and to
+    its launches (K1 in global rounds only, K2 four times a round: 2
+    halves x 2 chunks of 64), the final round's four K2 launches and, in
+    a subtraction run, the second Nyquist reconstruction's four. Returns
+    (launches, rounds, wall seconds, printed history, peak GiB)."""
+    import torch
+
+    from thunder_tpu_torch.core.optimiser import SEARCH_TYPE_GLOBAL
+    from thunder_tpu_torch.ops import insert, likelihood
+
+    rounds = []
+    undo = counted_rounds(q_true, rounds)
+    torch.cuda.reset_peak_memory_stats(dev)
+    likelihood.LAUNCHES["scan_fused"] = 0
+    insert.LAUNCHES["insert_update"] = 0
+    try:
+        wall, out = cli_call(["run", cfg_path])
+    finally:
+        undo()
+    launches = {"global_scan": likelihood.LAUNCHES["scan_fused"],
+                "insert_update": insert.LAUNCHES["insert_update"]}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    history = [json.loads(x) for x in out.splitlines()]
+    if [h["iter"] for h in history] != [r["rec"]["iter"] for r in rounds]:
+        raise AssertionError(f"{label}: printed history {history} does not "
+                             "match its rounds")
+    for i, r in enumerate(rounds, 1):
+        rec = r["rec"]
+        glob = r["search_type_in"] == SEARCH_TYPE_GLOBAL
+        log(f"{label} round {i} (search type {r['search_type_in']}): "
+            f"{r['wall']:.2f} s, launches {r['launches']}, median pose "
+            f"error {r['pose_err']:.2f} deg, res shell {rec['res_shell']}, "
+            f"ladder r {rec['r']}")
+        expect_launches(f"{label} round {i}", r["launches"], glob, 4)
+        if not (r["pose_err"] < ROUND_ANG_MAX
+                and rec["res_shell"] >= ROUND_RES_MIN):
+            raise AssertionError(f"{label} round {i}: pose error "
+                                 f"{r['pose_err']} / shell "
+                                 f"{rec['res_shell']}")
+    expect_launches(label, launches,
+                    any(r["launches"]["global_scan"] for r in rounds),
+                    4 * (len(rounds) + 1 + subtract))
+    if launches["global_scan"] != sum(r["launches"]["global_scan"]
+                                      for r in rounds):
+        raise AssertionError(f"{label}: K1 launched outside the rounds")
+    log(f"{label}: {wall:.2f} s for {len(rounds)} rounds and the final round,"
+        f" launches {launches}, peak device memory {peak:.3f} GiB")
+    return launches, rounds, wall, history, peak
+
+
+def check_cli_files(out, rounds, paths, n=160):
+    """The run's file set is the JAX package's for these rounds plus
+    thunder.log; its maps read back at n^3 with voxel 1.32; Meta_Final.thu
+    has a row per particle carrying the dataset's particle paths."""
+    import numpy as np
+
+    from thunder_tpu_torch.io import read_mrc, read_thu
+
+    got = set(os.listdir(out))
+    want = expected_files(rounds) | {"thunder.log"}
+    if got != want:
+        raise AssertionError(f"path D files: missing {sorted(want - got)}, "
+                             f"unexpected {sorted(got - want)}")
+    for name in sorted(x for x in got if x.endswith(".mrc")):
+        vol, hdr = read_mrc(os.path.join(out, name), return_header=True)
+        if vol.shape != (n,) * 3 or abs(hdr.voxel_size - 1.32) > 1e-5 \
+                or not np.isfinite(vol).all():
+            raise AssertionError(f"path D {name}: shape {vol.shape}, voxel "
+                                 f"{hdr.voxel_size}")
+    t = read_thu(os.path.join(out, "Meta_Final.thu"))
+    if t.values.shape != (len(paths), 27) or t.particle_paths != paths:
+        raise AssertionError("path D Meta_Final.thu: shape "
+                             f"{t.values.shape} or particle paths differ")
+    log(f"path D files: {len(got)} as the JAX package names them (and "
+        f"thunder.log); maps read back at {n}^3, voxel 1.32; Meta_Final.thu "
+        f"{t.values.shape} with the dataset's particle paths")
+    return t
+
+
+def residual_ratio(imgs, r_mask):
+    """Variance of images (b, n, n) inside the radius ``r_mask`` over their
+    variance outside it, each image's mean removed."""
+    import numpy as np
+
+    n = imgs.shape[-1]
+    g = np.mgrid[:n, :n] - n // 2
+    inside = np.sqrt((g ** 2).sum(0)) < r_mask
+    s = imgs - imgs.mean(axis=(1, 2), keepdims=True)
+    return float(np.mean(s[:, inside] ** 2) / np.mean(s[:, ~inside] ** 2))
+
+
+def subtracted_stack(out, b, n):
+    """Subtract_Rank_000000.mrcs of a run of ``b`` images read back with
+    Meta_Subtract.thu and checked: 4 b images, g-major, finite."""
+    import numpy as np
+
+    from thunder_tpu_torch.io import read_mrc, read_thu
+
+    sub = read_mrc(os.path.join(out, "Subtract_Rank_000000.mrcs"))
+    meta = read_thu(os.path.join(out, "Meta_Subtract.thu"))
+    if sub.shape != (4 * b, n, n) or len(meta) != 4 * b:
+        raise AssertionError(f"path D subtraction: stack {sub.shape}, "
+                             f"table {len(meta)} rows")
+    want = [f"{gi * b + l + 1}@Subtract_Rank_000000.mrcs"
+            for l in range(b) for gi in range(4)]
+    if meta.particle_paths != want or not np.isfinite(sub).all():
+        raise AssertionError("path D subtraction: Meta_Subtract.thu paths "
+                             "or non-finite images")
+    return sub
+
+
+def subtraction_residual(out, stack_in, r_mask):
+    """``residual_ratio`` of the identity copies of the subtracted stack
+    (1 when the particle is wholly subtracted and what is left is the
+    added noise) and of the input stack (the signal's share before
+    subtraction)."""
+    b, n = stack_in.shape[:2]
+    sub = subtracted_stack(out, b, n)
+    return (residual_ratio(sub[:b], r_mask), residual_ratio(stack_in, r_mask),
+            sub.shape)
+
+
+def map_fsc(dev, a, b):
+    """FSC of two real maps (NumPy in), per shell."""
+    import torch
+
+    from thunder_tpu_torch.ops import fft as fft_ops
+    from thunder_tpu_torch.ops import spectrum
+
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return spectrum.frc_fsc(fft_ops.fft3_center(t(a)), fft_ops.fft3_center(
+        t(b)), a.shape[-1] // 2, 3).cpu().numpy()
+
+
+def fsc_difference(post_fsc, run_fsc, last):
+    """Largest |difference| over shells 1 .. ``last`` between each FSC
+    column of the postprocess tool's table (unmasked, masked, true) and
+    the run's FSC_Final.txt (class 0)."""
+    import numpy as np
+
+    post = np.loadtxt(post_fsc, ndmin=2)
+    run = np.loadtxt(run_fsc, ndmin=2)
+    run = dict(zip(run[:, 0].astype(int), run[:, 2]))
+    shells = [i for i in range(1, last + 1) if i in run and i < len(post)]
+    want = np.array([run[i] for i in shells])
+    return {name: float(np.abs(post[shells, col] - want).max())
+            for col, name in ((1, "unmasked"), (2, "masked"), (3, "true"))}
+
+
+def run_tools(dev, out, work, final_shell, card):
+    """Every other subcommand once on the run's outputs, each read back
+    and held to its bar; prints each one's seconds."""
+    import numpy as np
+
+    from thunder_tpu_torch.io import read_mrc, read_thu, write_mrc
+
+    fin = f"{out}/Reference_000_Final.mrc"
+    half = [f"{out}/Reference_000_{h}_Final.mrc" for h in "AB"]
+    meta = f"{out}/Meta_Final.thu"
+    ref = read_mrc(fin)
+    a, b = (read_mrc(x) for x in half)
+    n, c = ref.shape[-1], ref.shape[-1] // 2
+    n_img = len(read_thu(meta))
+    secs = {}
+
+    def tool(name, argv):
+        secs[name], printed = cli_call(argv)
+        log(f"path D {name}: {secs[name]:.2f} s; " + " | ".join(
+            printed.strip().splitlines()))
+        return printed
+
+    tool("reconstruct", ["reconstruct", meta, f"{work}/recon.mrc",
+                         "--pixel-size", "1.32"])
+    fsc = map_fsc(dev, read_mrc(f"{work}/recon.mrc"), ref)
+    low = fsc[1:TOOL_RECON_SHELLS + 1]
+    log(f"path D reconstruct: FSC against the run's final map min over "
+        f"shells 1 .. {TOOL_RECON_SHELLS} {low.min():.4f} (first under 0.5: "
+        f"{int(np.argmax(fsc[1:] < 0.5)) + 1})")
+    if not low.min() > 0.5:
+        raise AssertionError(f"path D reconstruct: FSC {low}")
+    printed = tool("postprocess", ["postprocess", *half, f"{work}/post.mrc",
+                                   "--fsc", f"{work}/post_fsc.txt"])
+    shell = int(printed.split("(shell ")[1].split(")")[0])
+    post = read_mrc(f"{work}/post.mrc")
+    fsc_shape = np.loadtxt(f"{work}/post_fsc.txt").shape
+    diff = fsc_difference(f"{work}/post_fsc.txt", f"{out}/FSC_Final.txt",
+                          final_shell)
+    log(f"path D postprocess: shell {shell}, the run's {final_shell}; FSC "
+        f"against the run's over shells 1 .. {final_shell}, largest "
+        f"difference {json.dumps(diff)} (bar {TOOL_POST_FSC_TOL} on true)")
+    if not diff["true"] < TOOL_POST_FSC_TOL \
+            or not np.isfinite(post).all() or fsc_shape != (c, 4):
+        raise AssertionError(
+            f"path D postprocess: shell {shell} against the run's "
+            f"{final_shell}, FSC difference {diff}, "
+            f"{int(np.sum(~np.isfinite(post)))} non-finite voxels, FSC "
+            f"table {fsc_shape}")
+    tool("genmask", ["genmask", fin, f"{work}/mask.mrc"])
+    m = read_mrc(f"{work}/mask.mrc")
+    share = float((m > 0.5).mean())
+    if not (m.min() >= 0 and m.max() <= 1 and 0.001 < share < 0.5):
+        raise AssertionError(f"path D genmask: range [{m.min()}, {m.max()}],"
+                             f" share inside {share}")
+    tool("genmask_shell", ["genmask_shell", f"{work}/shell.mrc", "--boxsize",
+                           n, "--inner-radius", 0.125 * n * 1.32,
+                           "--outer-radius", 0.375 * n * 1.32,
+                           "--edgewidth", 2, "--pixelsize", 1.32])
+    s = read_mrc(f"{work}/shell.mrc")
+    if s.shape != (n,) * 3 or s[c, c, c] != 0 or s[c, c, c + n // 4] != 1:
+        raise AssertionError("path D genmask_shell: wrong shell")
+    # cutoff at shell n / 8 (shell 20 of 80 at 160 px, 10.6 A)
+    tool("lowpass", ["lowpass", fin, f"{work}/lp.mrc", "--resolution",
+                     8 * 1.32])
+    tool("bfactor", ["bfactor", fin, f"{work}/bf.mrc", "--bfactor", -50])
+    lp, bf = read_mrc(f"{work}/lp.mrc"), read_mrc(f"{work}/bf.mrc")
+    fl = map_fsc(dev, lp, ref)
+    if not (np.isfinite(bf).all() and bf.std() > ref.std()
+            and fl[n // 32] > 0.99 and abs(fl[n // 4]) < 0.1):
+        raise AssertionError(f"path D lowpass/bfactor: FSC {fl}; std "
+                             f"{bf.std()} vs {ref.std()}")
+    tool("mask", ["mask", fin, f"{work}/mask.mrc", f"{work}/masked.mrc"])
+    tool("average", ["average", *half, f"{work}/avg.mrc"])
+    tool("minus", ["minus", *half, f"{work}/minus.mrc"])
+    for name, want in (("masked", ref * m), ("avg", (a + b) / 2),
+                       ("minus", a - b)):
+        if not np.array_equal(read_mrc(f"{work}/{name}.mrc"), want):
+            raise AssertionError(f"path D {name}: not the element-wise map")
+    tool("resize", ["resize", fin, f"{work}/small.mrc", "--size", n * 4 // 5])
+    small, hdr = read_mrc(f"{work}/small.mrc", return_header=True)
+    if small.shape != (n * 4 // 5,) * 3 \
+            or abs(hdr.voxel_size - 1.32 * n / (n * 4 // 5)) > 1e-5:
+        raise AssertionError(f"path D resize: {small.shape}, voxel "
+                             f"{hdr.voxel_size}")
+    tool("alignz", ["alignz", fin, f"{work}/az.mrc", "--axis", "0,0,1"])
+    if not np.allclose(read_mrc(f"{work}/az.mrc"), ref, atol=1e-6):
+        raise AssertionError("path D alignz: +z is not the identity")
+    tool("view", ["view", fin, "--slices", f"{work}/slice"])
+    for p in ("xy", "xz", "yz"):
+        if os.path.getsize(f"{work}/slice_{p}.bmp") != 14 + 40 + 1024 \
+                + n * n:
+            raise AssertionError(f"path D view: slice_{p}.bmp size")
+    tool("project", ["project", fin, meta, f"{work}/proj.mrcs",
+                     "--pixel-size", 1.32])
+    proj = read_mrc(f"{work}/proj.mrcs")
+    if proj.shape != (n_img, n, n) or not np.isfinite(proj).all() \
+            or not proj.std() > 0:
+        raise AssertionError(f"path D project: {proj.shape}")
+    write_mrc(f"{work}/classes.mrcs", np.stack([ref[c], ref[:, c],
+                                                ref[:, :, c]]))
+    tool("select", ["select", f"{work}/classes.mrcs", f"{work}/g.html",
+                    "--thu", meta, "--keep", "0", "--keep-output",
+                    f"{work}/kept.thu"])
+    kept = read_thu(f"{work}/kept.thu")
+    if len(kept) != n_img or kept.particle_paths != read_thu(
+            meta).particle_paths:
+        raise AssertionError("path D select: the kept table")
+    log(f"path D subcommand seconds ({card}): " + json.dumps(
+        {k: round(v, 3) for k, v in secs.items()}))
+    return secs
+
+
+def subtraction_controls(work, stack, truth, r_mask, readings):
+    """Wrap ``Optimiser.save_subtract`` so that, before it writes the
+    run's stack, it writes controls into a directory of their own and
+    records each one's ``residual_ratio`` in ``readings``: ``truth`` (the
+    phantom, masked as the pipeline masks its map, at the true poses,
+    shifts and defocus factors, each image's projection M at the scale
+    that fits that image best, the least-squares s of I - s M),
+    ``truth_one_scale`` (one such scale for all images; the spread of the
+    images' own scales as ``image_scale_spread``), ``map_true_poses`` (the
+    pipeline's map at the truth), ``phantom_run_poses`` (the phantom at
+    the one scale at the run's poses, shifts and defocus factors) and
+    ``truth_before_norm`` (the truth at one scale on the images with the
+    pipeline's norm correction undone; the spread of its factors as
+    ``norm_factor_spread``). Returns the undo."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.core.optimiser import Optimiser
+
+    orig, orig_norm = Optimiser.save_subtract, Optimiser.norm_correction
+    b, n = stack.shape[:2]
+    norm = {}
+
+    def norm_correction(self, stats=None):
+        norm["fac"] = orig_norm(self, stats)
+        return norm["fac"]
+
+    def save_subtract(self):
+        para, refs, par, off = self.para, self.refs, self.par, self.offsets
+        imgs = self.imgs_ft_ori
+        plane = lambda a: self._t(np.asarray(a, np.float32)[self.plane_index])
+        self.refs = self._t(truth["vol"])[None, None].expand_as(refs).clone()
+        self.solvent_flatten(True)
+        ph = self.refs
+        true_par = {**par, "topR": plane(truth["q"]),
+                    "topT": plane(truth["tr"]), "topD": plane(truth["dfac"])}
+        zero = torch.zeros_like(off)
+        d = os.path.join(work, "control")
+
+        def subtract(r, p, o):
+            self.para = dataclasses.replace(para, output_directory=d)
+            self.refs, self.par, self.offsets = r, p, o
+            orig(self)
+            sub = subtracted_stack(d, b, n)[:b].astype(np.float64)
+            shutil.rmtree(d)
+            return sub
+
+        try:
+            img = subtract(ph * 0, true_par, zero)    # I, re-centred
+            model = img - subtract(ph, true_par, zero)  # M, unit scale
+            scale = float(np.sum(img * model) / np.sum(model * model))
+            each = np.sum(img * model, axis=(1, 2), keepdims=True) / np.sum(
+                model * model, axis=(1, 2), keepdims=True)
+            readings["truth"] = residual_ratio(img - each * model, r_mask)
+            readings["truth_one_scale"] = residual_ratio(img - scale * model,
+                                                         r_mask)
+            readings["image_scale_spread"] = float(each.std() / each.mean())
+            readings["map_true_poses"] = residual_ratio(
+                subtract(refs, true_par, zero), r_mask)
+            readings["phantom_run_poses"] = residual_ratio(
+                subtract(ph * scale, par, off), r_mask)
+            fac = norm["fac"]
+            self.imgs_ft_ori = imgs / fac[..., None, None]
+            img = subtract(ph * 0, true_par, zero)
+            model = img - subtract(ph, true_par, zero)
+            readings["truth_before_norm"] = residual_ratio(
+                img - np.sum(img * model) / np.sum(model * model) * model,
+                r_mask)
+            readings["norm_factor_spread"] = float(fac.std() / fac.mean())
+        finally:
+            self.para, self.refs, self.par, self.offsets = para, refs, par, off
+            self.imgs_ft_ori = imgs
+        readings["phantom_scale"] = scale
+        orig(self)
+
+    Optimiser.save_subtract = save_subtract
+    Optimiser.norm_correction = norm_correction
+
+    def undo():
+        Optimiser.save_subtract = orig
+        Optimiser.norm_correction = orig_norm
+
+    return undo
+
+
+def check_resume_entry(first, meta, q_true, err_meta):
+    """The resume's first round starts from Meta_Final.thu as written:
+    its top quaternions, shifts and defocus factors on entry equal the
+    table's (``load_poses``), and so does its pose error."""
+    import numpy as np
+
+    from thunder_tpu_torch.io import ThuColumns as C
+
+    want = dict(quat=meta.values[:, C.QUAT_0:C.QUAT_3 + 1],
+                trans=meta.values[:, C.TRANSLATION_X:C.TRANSLATION_Y + 1],
+                defocus=meta.col(C.DEFOCUS_FACTOR))
+    diff = {k: float(np.max(np.abs(first["entry"][k] - v)))
+            for k, v in want.items()}
+    err_in = float(np.median(pose_error_q(first["entry"]["quat"], q_true)))
+    log(f"path D resume entry: largest difference from Meta_Final.thu "
+        f"{json.dumps(diff)}; median pose error on entry {err_in:.4f} deg "
+        f"(Meta_Final.thu {err_meta:.4f})")
+    if max(diff.values()) > 1e-6 or abs(err_in - err_meta) > 1e-3:
+        raise AssertionError(f"path D resume: load_poses state {diff}")
+
+
+def run_cli_path(dev, card, n=160, b=N_PARTICLES):
+    """Path D: the command-line entry point on the card, from files as a
+    user hands them over (see the module docstring, phase 9). Returns the
+    launches of the run and of the two resumes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from thunder_tpu_torch.io import ThuColumns, read_thu
+
+    work = tempfile.mkdtemp(prefix="thunder_cli_")
+    try:
+        t0 = time.perf_counter()
+        stack, truth = write_cli_dataset(dev, work, n, b)
+        q_true = truth["q"]
+        secs, _ = cli_call(["thu2star", f"{work}/particles.thu",
+                            f"{work}/particles.star"])
+        secs2, _ = cli_call(["star2thu", f"{work}/particles.star",
+                             f"{work}/rt.thu"])
+        orig, rt = (read_thu(f"{work}/{x}.thu") for x in ("particles", "rt"))
+        ctf = [ThuColumns.VOLTAGE, ThuColumns.DEFOCUS_U, ThuColumns.DEFOCUS_V,
+               ThuColumns.CS, ThuColumns.AMPLITUDE_CONTRAST,
+               ThuColumns.GROUP_ID, ThuColumns.COORDINATE_X]
+        if rt.particle_paths != orig.particle_paths or not np.allclose(
+                rt.values[:, ctf], orig.values[:, ctf], rtol=1e-6, atol=1e-3):
+            raise AssertionError("path D: particles.thu does not survive "
+                                 "thu2star / star2thu")
+        log(f"path D dataset written ({stack.shape}, "
+            f"{stack.nbytes / 1e6:.1f} MB stack) and "
+            f"round-tripped through thu2star / star2thu ({secs:.2f} + "
+            f"{secs2:.2f} s) in {time.perf_counter() - t0:.2f} s")
+
+        out = f"{work}/out"
+        with open(f"{work}/run.json", "w") as f:
+            json.dump(cli_config(work, f"{work}/rt.thu", out, n=n), f)
+        per = {}
+        per["cli_run"], rounds, wall, hist, peak = cli_run(
+            dev, f"{work}/run.json", q_true, "path D cli run")
+        meta = check_cli_files(out, [h["iter"] for h in hist],
+                               orig.particle_paths, n)
+        ang = pose_error_q(meta.values[:, ThuColumns.QUAT_0:
+                                       ThuColumns.QUAT_3 + 1], q_true)
+        # every round was global: no re-centring, so the stored shift is
+        # the whole shift of the particle in its image
+        shift = shift_readings(meta, truth["tr"])
+        t_err = shift["err"]
+        res_inv = float(np.loadtxt(f"{out}/Class_Info_Final.txt",
+                                   ndmin=2)[0, 1])
+        final_shell = int(res_inv * n * 1.32 + 0.5)
+        log(f"path D Meta_Final.thu poses: median error "
+            f"{float(np.median(ang)):.2f} deg, shift error {t_err:.3f} px "
+            f"(bar {META_TRANS_MAX}; bias {shift['bias']}, bar "
+            f"{META_TRANS_BIAS_MAX}; about it {shift['err_about_bias']:.3f} "
+            f"px; slope {shift['slope']}, bar {META_TRANS_SLOPE}); final "
+            f"FSC-0.143 shell {final_shell} ({1 / res_inv:.2f} A)")
+        lo, hi = META_TRANS_SLOPE
+        if not (t_err < META_TRANS_MAX
+                and max(map(abs, shift["bias"])) < META_TRANS_BIAS_MAX
+                and all(lo < x < hi for x in shift["slope"])):
+            raise AssertionError(f"path D Meta_Final.thu: shifts {shift}")
+
+        r_mask = 75.0 * n / 160 / 1.32
+        resume = f"{work}/out_resume"
+        with open(f"{work}/resume.json", "w") as f:
+            json.dump(cli_config(work, f"{out}/Meta_Final.thu", resume,
+                                 g_search=False, iters=1, subtract=True,
+                                 n=n), f)
+        controls = {}
+        undo = subtraction_controls(work, stack, truth, r_mask, controls)
+        try:
+            per["cli_resume_subtract"], r_rounds, r_wall, _, r_peak = \
+                cli_run(dev, f"{work}/resume.json", q_true,
+                        "path D resume + subtraction", subtract=True)
+        finally:
+            undo()
+        if r_rounds[0]["search_type_in"] == 0:
+            raise AssertionError("path D resume: the first round was global")
+        check_resume_entry(r_rounds[0], meta, q_true, float(np.median(ang)))
+        r_err = r_rounds[0]["pose_err"]
+        ratio, ratio_in, shape = subtraction_residual(resume, stack, r_mask)
+        log(f"path D subtraction: {shape} read back with Meta_Subtract.thu; "
+            f"variance inside / outside the mask radius {ratio:.4f} (input "
+            f"stack {ratio_in:.4f}; bar {SUB_RESID_MAX}); controls (bar "
+            f"{SUB_TRUTH_MAX} on two): truth {controls['truth']:.4f}, truth "
+            f"at one scale {controls['truth_one_scale']:.4f} (the images' "
+            f"scales spread {controls['image_scale_spread']:.4f}; without "
+            f"the pipeline's norm correction "
+            f"{controls['truth_before_norm']:.4f}, its factors spread "
+            f"{controls['norm_factor_spread']:.4f}), "
+            f"the map at the "
+            f"true poses {controls['map_true_poses']:.4f}, the phantom at "
+            f"the resume's poses {controls['phantom_run_poses']:.4f} "
+            f"(phantom scale {controls['phantom_scale']:.5f}); resume pose "
+            f"error {r_err:.3f} deg (bar {ROUND_ANG_MAX})")
+        if not (ratio < SUB_RESID_MAX
+                and controls["truth"] < SUB_TRUTH_MAX
+                and controls["truth_before_norm"] < SUB_TRUTH_MAX):
+            raise AssertionError(f"path D resume + subtraction: ratio "
+                                 f"{ratio}, controls {controls}, pose error "
+                                 f"{r_err}")
+
+        # the same resume with the reference low-passed to the run's final
+        # resolution instead of 25 A: the band of its local round
+        hires = f"{work}/out_resume_hires"
+        with open(f"{work}/resume_hires.json", "w") as f:
+            json.dump(cli_config(work, f"{out}/Meta_Final.thu", hires,
+                                 g_search=False, iters=1, subtract=True, n=n,
+                                 init_res=1 / res_inv), f)
+        per["cli_resume_hires"], h_rounds, h_wall, _, h_peak = cli_run(
+            dev, f"{work}/resume_hires.json", q_true,
+            "path D resume at the run's resolution", subtract=True)
+        h_err = h_rounds[0]["pose_err"]
+        h_ratio = subtraction_residual(hires, stack, r_mask)[0]
+        log(f"path D resume at {1 / res_inv:.2f} A: pose error {h_err:.3f} "
+            f"deg (bar {RESUME_HI_ANG_MAX}), subtraction ratio {h_ratio:.4f} "
+            f"(bar {SUB_HI_MAX})")
+        if not (h_err < RESUME_HI_ANG_MAX and h_ratio < SUB_HI_MAX):
+            raise AssertionError(f"path D resume at the run's resolution: "
+                                 f"pose error {h_err}, ratio {h_ratio}")
+
+        tools = run_tools(dev, out, work, final_shell, card)
+        log("path D readings: " + json.dumps(dict(
+            card=card, run_s=wall, run_rounds_s=[r["wall"] for r in rounds],
+            run_peak_gib=peak, run_pose_err=[r["pose_err"] for r in rounds],
+            meta_final_pose_err=float(np.median(ang)),
+            meta_final_shift_err_px=t_err, resume_subtract_s=r_wall,
+            resume_rounds_s=[r["wall"] for r in r_rounds],
+            resume_pose_err=r_err, resume_peak_gib=r_peak,
+            subtract_residual_ratio=ratio, input_ratio=ratio_in,
+            subtract_controls=controls, resume_hires_s=h_wall,
+            resume_hires_pose_err=h_err, resume_hires_ratio=h_ratio,
+            resume_hires_peak_gib=h_peak, tools_s=tools)))
+        return per
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def shift_readings(meta, tr):
+    """Meta_Final.thu's shifts against the true ones ``tr`` (b, 2): the
+    median error (px), the mean error (bias) per axis, the median error
+    about that bias, and per axis the least-squares slope of the stored
+    shift on the true one (a sign or scale fault reads far from 1)."""
+    import numpy as np
+
+    from thunder_tpu_torch.io import ThuColumns
+
+    got = meta.values[:, ThuColumns.TRANSLATION_X:
+                      ThuColumns.TRANSLATION_Y + 1]
+    dt = got - tr
+    bias = dt.mean(axis=0)
+    slope = (got * tr).sum(axis=0) / (tr * tr).sum(axis=0)
+    return dict(err=float(np.median(np.hypot(dt[:, 0], dt[:, 1]))),
+                bias=[float(x) for x in bias],
+                err_about_bias=float(np.median(np.hypot(*(dt - bias).T))),
+                slope=[float(x) for x in slope])
+
+
+def cli_study(dev, seeds=(0, 0, 0, 0, 14, 15, 16, 17, 18, 19), n=160,
+              b=N_PARTICLES):
+    """``--cli-study``: path D's ``cli run`` and its two resumes on the
+    same files once per entry of ``seeds`` (the Para seed: the dataset's
+    halves and the filter's draws; a repeated seed differs only by the
+    kernels' atomic order), without bounds; prints each run's readings
+    of the quantities path D holds to bars, then their ranges."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import thunder_tpu_torch.config as config_mod
+    from thunder_tpu_torch.io import ThuColumns, read_mrc, read_thu
+
+    work = tempfile.mkdtemp(prefix="thunder_cli_study_")
+    load = config_mod.load_para
+    rows = []
+    r_mask = 75.0 * n / 160 / 1.32
+    try:
+        stack, truth = write_cli_dataset(dev, work, n, b)
+        q_true = truth["q"]
+
+        def run(cfg, seed):
+            config_mod.load_para = lambda *a, **k: dataclasses.replace(
+                load(*a, **k), seed=seed)
+            rounds = []
+            undo = counted_rounds(q_true, rounds)
+            try:
+                cli_call(["run", cfg])
+            finally:
+                undo()
+                config_mod.load_para = load
+            return rounds
+
+        for seed in seeds:
+            out = f"{work}/out"
+            with open(f"{work}/run.json", "w") as f:
+                json.dump(cli_config(work, f"{work}/particles.thu", out,
+                                     n=n), f)
+            rounds = run(f"{work}/run.json", seed)
+            meta = read_thu(f"{out}/Meta_Final.thu")
+            ang = pose_error_q(meta.values[:, ThuColumns.QUAT_0:
+                                           ThuColumns.QUAT_3 + 1], q_true)
+            res_inv = float(np.loadtxt(f"{out}/Class_Info_Final.txt",
+                                       ndmin=2)[0, 1])
+            row = dict(seed=seed, round_pose_err=[r["pose_err"]
+                                                  for r in rounds],
+                       meta_pose_err=float(np.median(ang)),
+                       shift=shift_readings(meta, truth["tr"]),
+                       final_res_a=1 / res_inv)
+            cli_call(["reconstruct", f"{out}/Meta_Final.thu",
+                      f"{work}/recon.mrc", "--pixel-size", "1.32"])
+            fsc = map_fsc(dev, read_mrc(f"{work}/recon.mrc"),
+                          read_mrc(f"{out}/Reference_000_Final.mrc"))
+            row["reconstruct_fsc_min"] = float(
+                fsc[1:TOOL_RECON_SHELLS + 1].min())
+            _, printed = cli_call(["postprocess", *(
+                f"{out}/Reference_000_{h}_Final.mrc" for h in "AB"),
+                f"{work}/post.mrc", "--fsc", f"{work}/post_fsc.txt"])
+            final_shell = int(res_inv * n * 1.32 + 0.5)
+            row["postprocess_shell_minus_run"] = int(printed.split(
+                "(shell ")[1].split(")")[0]) - final_shell
+            row["postprocess_fsc_diff"] = fsc_difference(
+                f"{work}/post_fsc.txt", f"{out}/FSC_Final.txt", final_shell)
+            for key, init_res in (("resume", 25.0),
+                                  ("resume_hires", 1 / res_inv)):
+                dst = f"{work}/{key}"
+                with open(f"{work}/{key}.json", "w") as f:
+                    json.dump(cli_config(
+                        work, f"{out}/Meta_Final.thu", dst, g_search=False,
+                        iters=1, subtract=True, n=n, init_res=init_res), f)
+                r_rounds = run(f"{work}/{key}.json", seed)
+                row[f"{key}_pose_err"] = r_rounds[0]["pose_err"]
+                row[f"{key}_ratio"] = subtraction_residual(
+                    dst, stack, r_mask)[0]
+                shutil.rmtree(dst)
+            shutil.rmtree(out)
+            rows.append(row)
+            log(f"cli study: {json.dumps(row)}")
+        flat = lambda r: dict(
+            meta_pose_err=r["meta_pose_err"], shift_err=r["shift"]["err"],
+            shift_err_about_bias=r["shift"]["err_about_bias"],
+            resume_pose_err=r["resume_pose_err"],
+            resume_ratio=r["resume_ratio"],
+            resume_hires_pose_err=r["resume_hires_pose_err"],
+            resume_hires_ratio=r["resume_hires_ratio"],
+            reconstruct_fsc_min=r["reconstruct_fsc_min"],
+            postprocess_shell_minus_run=r["postprocess_shell_minus_run"],
+            **{f"postprocess_fsc_diff_{k}": v
+               for k, v in r["postprocess_fsc_diff"].items()},
+            **{f"shift_bias_{a}": r["shift"]["bias"][i]
+               for i, a in enumerate("xy")},
+            **{f"shift_slope_{a}": r["shift"]["slope"][i]
+               for i, a in enumerate("xy")})
+        ranges = {k: [min(flat(r)[k] for r in rows),
+                      max(flat(r)[k] for r in rows)] for k in flat(rows[0])}
+        log(f"cli study ranges over {len(rows)} runs: {json.dumps(ranges)}")
+    finally:
+        config_mod.load_para = load
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ------------------------------------------------------ classification
 
 def class_para(path):
@@ -1890,6 +2728,12 @@ def main(argv):
         log(f"SASS: global-scan tensor-core instructions "
             f"{sass['global_scan']} (HGMMA = wgmma, HMMA = mma.sync); "
             f"insert atomics {sass['insert_atomics']}")
+    if "--cli" in argv:
+        log(f"path D launches: {json.dumps(run_cli_path(dev, card))}")
+        return 0
+    if "--cli-study" in argv:
+        cli_study(dev)
+        return 0
     k1 = check_k1(dev)
     k1_cls = check_k1_classes(dev)
     # the global round's insert call: 64 images x 100 draws x 2048 ring
@@ -1913,6 +2757,7 @@ def main(argv):
         per_path.update(run_class3d(dev, k2))
         per_path.update(run_class2d(dev))
         per_path.update(run_ctf_path(dev, k2))
+        per_path.update(run_cli_path(dev, card))
         launches = {name: sum(p[name] for p in per_path.values())
                     for name in ("global_scan", "insert_update")}
     if "--data-study" in argv:

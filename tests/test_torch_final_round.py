@@ -216,13 +216,22 @@ def test_run_writes_round_and_final_sets(final, tmp_path):
 
 
 @pytest.mark.parametrize("final", [1], indirect=True, ids=["k1"])
-def test_unported_final_options_raise(final):
-    para = dataclasses.replace(final["para"], subtract=True)
-    opt = _port(para, final["data"], final["d_port"])
-    with pytest.raises(NotImplementedError):
-        opt.run(max_iter=1)
-    with pytest.raises(NotImplementedError):
-        opt.set_mask(np.ones((N, N, N), np.float32))
+def test_unported_final_options_raise(final, tmp_path):
+    """The MKB insert is still refused. A provided mask and a subtraction
+    run now run: ``set_mask`` keeps the volume, and ``run`` ends in the
+    subtracted stack (one image per particle under C1) and its table
+    (parity in tests/test_torch_subtract.py)."""
+    para = dataclasses.replace(final["para"], subtract=True,
+                               save_ref_each_iter=False,
+                               save_thu_each_iter=False)
+    opt = _port(para, final["data"], str(tmp_path))
+    opt.set_mask(np.ones((N, N, N), np.float32))
+    assert tuple(opt.mask_vol.shape) == (N, N, N)
+    opt.run(max_iter=1)
+    n_imgs = len(final["data"][1])
+    stack = tio.read_mrc(str(tmp_path / "Subtract_Rank_000000.mrcs"))
+    assert stack.shape == (n_imgs, N, N) and np.isfinite(stack).all()
+    assert len(tio.read_thu(str(tmp_path / "Meta_Subtract.thu"))) == n_imgs
     with pytest.raises(NotImplementedError):
         tom.Optimiser(dataclasses.replace(final["para"], mkb_kernel=True),
                       device="cpu")

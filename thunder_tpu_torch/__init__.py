@@ -1,8 +1,10 @@
 """thunder_tpu_torch — the PyTorch/CUDA port of thunder_tpu.
 
 The layout mirrors ``thunder_tpu`` module for module (``config``,
-``dtypes``, ``geom``, ``ops``, ``core``, ``parallel.engine``) so each
-function's counterpart is easy to find. Inside, the code is PyTorch: plain
+``dtypes``, ``geom``, ``ops``, ``core``, ``parallel.engine``, ``io``,
+``data``, ``utils``, ``cli``) so each function's counterpart is easy to
+find; ``python -m thunder_tpu_torch.cli run config.json`` is the command
+line (``--cpu`` runs it on the CPU). Inside, the code is PyTorch: plain
 functions on tensors with an explicit ``device``; the two golden-standard
 half-maps are a leading dimension of size 2 instead of a ``shard_map``
 mesh axis, and every random draw is an explicit tensor argument.

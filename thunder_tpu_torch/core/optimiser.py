@@ -31,15 +31,18 @@ class and the final file set (``save_outputs``).
 2D mode (``para.mode == "2d"``) refines in-plane angles against K class
 averages (2, K, n, n) with the bilinear 2D tables and the 2D insert.
 
-Not ported yet, and raising ``NotImplementedError`` where a run would
-reach them: the MKB insert, provided mask volumes (``set_mask``;
-``solvent_flatten`` uses the spherical mask, as the JAX package does when
-no mask was set) and the subtraction pipeline of the final round
-(``para.subtract``).
+Data come as arrays (``set_data``) or from a .thu table and its MRC
+stacks (``set_data_from_dataset``); ``load_poses`` resumes from stored
+poses. A provided mask volume (``set_mask``) replaces the spherical mask
+in solvent flattening when ``use_mask`` asks for it and in the golden FSC
+under ``mask_fsc``. With ``para.subtract`` the final round ends in the
+signal-subtraction pipeline (``_subtract_pipeline``: the subtracted stack
+Subtract_Rank_000000.mrcs and Meta_Subtract.thu).
+
+Not ported yet, and raising ``NotImplementedError``: the MKB insert.
 """
 
 import dataclasses
-import logging
 import os
 import time
 
@@ -50,13 +53,14 @@ from ..config import Para
 from ..dtypes import real_dtype, resolve_device
 from ..geom import quat
 from ..geom.symmetry import Symmetry
-from ..io.mrc import write_mrc
-from ..io.thu import make_table, write_thu
+from ..io.mrc import read_mrc, write_mrc
+from ..io.thu import ThuColumns, make_table, write_thu
 from ..ops import brick as brick_ops
 from ..ops import ctf as ctf_ops
 from ..ops import fft as fft_ops
 from ..ops import likelihood, pixels, spectrum
 from ..ops.filters import low_pass_filter
+from ..utils import check_memory_usage, get_logger
 from ..ops.mask import soft_mask_shape
 from ..ops.translate import translate_ft, translate_ft_3d, translation_phase
 from ..parallel import engine
@@ -85,6 +89,18 @@ EDGE_WIDTH_RL = 6.0  # include/Macro.h
 # and otherwise one class at a time with the other classes' weights zeroed
 # (the JAX package's rule, thunder_tpu/core/optimiser.py:1428-1429)
 FUSED_CLASS_BYTES = 3e9
+
+
+def _centroid(vol):
+    """Density centroid of a (n, n, n) map in centred (x, y, z) voxel
+    coordinates, negative density clipped (the subtraction region's
+    centre, src/Optimiser.cpp:4195)."""
+    v = np.maximum(np.asarray(vol, np.float64), 0.0)
+    n = vol.shape[-1]
+    g = np.mgrid[:n, :n, :n].astype(np.float64) - n // 2  # (z, y, x)
+    tot = max(v.sum(), 1e-30)
+    return np.array([(g[2] * v).sum(), (g[1] * v).sum(),
+                     (g[0] * v).sum()]) / tot
 
 
 def stat_mas(x):
@@ -228,7 +244,7 @@ class Optimiser:
         self.n = para.size
         self.iteration = 0
         self.history = []
-        self.log = logging.getLogger("thunder_tpu_torch.ROUND")
+        self.log = get_logger("ROUND")
         n, ps = para.size, para.pixel_size
         a2p = lambda res_a: max(1, int(round(n * ps / res_a)))
         self.max_r = n // 2 - int(np.ceil(para.a))
@@ -298,6 +314,59 @@ class Optimiser:
                                        self.para.m_l_t, self.para.m_l_d,
                                        device=self.device)
         self.scores = torch.ones((2, s), dtype=real_dtype, device=self.device)
+
+    def set_data_from_dataset(self, ds):
+        """Data from a ``data.ParticleDataset``: every image read from its
+        stack, the dataset's seeded halves, 0-based groups and CTF
+        columns through ``set_data``; the particle and micrograph paths
+        and the micrograph coordinates carried into the .thu output."""
+        self.set_data(ds.load_images(), ds.ctf_params(),
+                      group_ids=ds.group_ids, halves=ds.halves)
+        self.particle_paths = ds.table.particle_paths
+        self.micrograph_paths = ds.table.micrograph_paths
+        self.coords_xy = np.asarray(ds.table.values[
+            :, (ThuColumns.COORDINATE_X, ThuColumns.COORDINATE_Y)],
+            np.float64)
+        get_logger("INIT").info(
+            "dataset: %d particles, %d groups, %d slots/half",
+            self.n_imgs, self.n_groups, self.s_slots)
+
+    def load_poses(self, quats, trans, defocus=None, classes=None,
+                   k123=None, std_t=None):
+        """Resume from stored poses (Particle::load via loadParticles,
+        src/Optimiser.cpp:5312-5385): every support point at the stored
+        pose, concentrations k1..k3 (default 0.01) clamped to >= 1e-5 and
+        translation stddevs (default 1) to >= 0.1. Image-order arrays; in
+        2D a stored rotation about z, (cos(phi/2), 0, 0, sin(phi/2)),
+        becomes the support convention (cos phi, sin phi, 0, 0)."""
+        plane = lambda a, dt=np.float32: np.asarray(a, dt)[self.plane_index]
+        q = plane(quats)
+        if self.dims == 2:
+            phi = 2.0 * np.arctan2(q[..., 3], q[..., 0])
+            z = np.zeros_like(phi)
+            q = np.stack([np.cos(phi), np.sin(phi), z, z], axis=-1)
+        par = dict(self.par)
+        n_r, n_t = par["r"].shape[2], par["t"].shape[2]
+        q, t = self._t(q, real_dtype), self._t(plane(trans), real_dtype)
+        par["r"] = q[:, :, None, :].expand(-1, -1, n_r, -1).clone()
+        par["t"] = t[:, :, None, :].expand(-1, -1, n_t, -1).clone()
+        par["topR"], par["topT"] = q, t
+        if classes is not None:
+            par["c"] = self._t(plane(classes, np.int32))
+        shape = self.plane_index.shape
+        for i, name in enumerate(("k1", "k2", "k3")):
+            v = (plane(k123[i]) if k123 is not None
+                 else np.full(shape, 0.01, np.float32))
+            par[name] = self._t(np.maximum(v, 1e-5))
+        for i, name in enumerate(("s0", "s1")):
+            v = (plane(std_t[i]) if std_t is not None
+                 else np.ones(shape, np.float32))
+            par[name] = self._t(np.maximum(v, 0.1))
+        if defocus is not None:
+            d = self._t(plane(defocus))
+            par["d"] = d[:, :, None].expand(-1, -1, par["d"].shape[2]).clone()
+            par["topD"] = d
+        self.par = par
 
     def _from_plane(self, plane_arr):
         """(2, S, ...) -> (N, ...) NumPy in image order."""
@@ -704,8 +773,10 @@ class Optimiser:
     def _auto_recentre_refs(self):
         """solventFlatten's refAutoRecentre branch (src/Optimiser.cpp:
         7390-7425): translate each reference by -O, the symmetrised
-        insert offset, so its density centre returns to the box centre."""
-        if self.dims == 2:  # the JAX package re-centres 3D maps only
+        insert offset, so its density centre returns to the box centre;
+        3D maps only, and not when a mask volume was provided (its frame
+        is fixed)."""
+        if self.dims == 2 or getattr(self, "mask_vol", None) is not None:
             return
         o = self.insert_offsets                              # (2, K, 3)
         self.refs = torch.stack([torch.stack([
@@ -715,17 +786,24 @@ class Optimiser:
             for k in range(self.para.k)]) for h in range(2)])
 
     def set_mask(self, vol):
-        """A provided reference mask volume: not ported yet."""
-        raise _not_ported("a provided mask volume (set_mask)")
+        """A provided reference mask volume (n, n, n) in [0, 1]."""
+        self.mask_vol = self._t(np.asarray(vol, np.float32))
 
     def solvent_flatten(self, use_mask=False):
         """Soft-mask every reference with zero background
-        (src/Optimiser.cpp:7768-7990). Mask volumes cannot be set in the
-        port yet, so ``use_mask`` finds none and the spherical mask is
-        used, as in the JAX package when no mask was set."""
+        (src/Optimiser.cpp:7768-7990): with ``use_mask`` in 3D and a mask
+        volume set, that volume low-passed to the current band (clamped to
+        [0, 1]); otherwise the spherical mask."""
         n = self.n
-        alpha = soft_mask_shape((n,) * self.dims, self.para.mask_radius_px,
-                                EDGE_WIDTH_RL, device=self.device)
+        if (use_mask and self.dims == 3
+                and getattr(self, "mask_vol", None) is not None):
+            m_ft = low_pass_filter(fft_ops.fft3_center(self.mask_vol),
+                                   self.ladder.r / n, 4.0 / n, 3)
+            alpha = torch.clamp(fft_ops.ifft3_center(m_ft).real, 0.0, 1.0)
+        else:
+            alpha = soft_mask_shape((n,) * self.dims,
+                                    self.para.mask_radius_px, EDGE_WIDTH_RL,
+                                    device=self.device)
         self.refs = self.refs * alpha
 
     def refresh_class_distr(self):
@@ -773,16 +851,20 @@ class Optimiser:
         self.refs = refs
 
     def _golden_fsc(self, ft_a, ft_b):
-        """Golden-standard FSC with the random-phase core-mask correction
-        (Model::compareTwoHemispheres src/Model.cpp:407-546); the plain
-        FRC in 2D mode."""
+        """Golden-standard FSC with the random-phase mask correction
+        (Model::compareTwoHemispheres src/Model.cpp:407-546): the provided
+        mask volume under ``mask_fsc``, else the spherical core under
+        ``core_fsc``; the plain FRC in 2D mode."""
         para = self.para
         n = self.n
         fsc_u = spectrum.frc_fsc(ft_a, ft_b, n // 2, self.dims)
-        if not para.core_fsc or self.dims == 2:
+        use_mask = (para.mask_fsc
+                    and getattr(self, "mask_vol", None) is not None)
+        if not (use_mask or para.core_fsc) or self.dims == 2:
             return fsc_u
-        alpha = soft_mask_shape((n, n, n), para.mask_radius_px,
-                                EDGE_WIDTH_RL, device=self.device)
+        alpha = (self.mask_vol if use_mask else soft_mask_shape(
+            (n, n, n), para.mask_radius_px, EDGE_WIDTH_RL,
+            device=self.device))
         r_rand = spectrum.res_p(fsc_u, 0.8, r_low=1)
         phi_a, phi_b = self.draws.fsc_phases(n)
         fft3, ifft3 = fft_ops.fft3_center, fft_ops.ifft3_center
@@ -1040,6 +1122,7 @@ class Optimiser:
         self.log.info("Round %d done: r=%d res=%.2f A type=%d timing=%s",
                       rec["iter"], rec["r"], rec["res_a"], st,
                       {k: round(v, 3) for k, v in timing.items()})
+        check_memory_usage(f"round {rec['iter']}", self.device)
         return rec
 
     def _seed_defocus_search(self):
@@ -1062,9 +1145,6 @@ class Optimiser:
         ``finalise``, the final round (``finalise``). Returns the
         history."""
         para = self.para
-        if finalise and para.subtract and self.dims == 3 and not para.skip_r:
-            # the final round would reach it: refuse before any round
-            raise _not_ported("the subtraction pipeline (para.subtract)")
         max_iter = max_iter or para.iter_max
         if (self.iteration == 0 and getattr(self, "_init_model_given", False)
                 and not para.skip_m and getattr(self, "sig", None)
@@ -1085,22 +1165,140 @@ class Optimiser:
         working stack and the brick tables are dropped, the reconstruction
         runs at the Nyquist band (r_u = max_r) without hemisphere
         averaging and with each class's joined map, then solvent flattening
-        and the final file set."""
+        (or, with ``para.subtract`` in 3D, the subtraction pipeline) and
+        the final file set."""
         para = self.para
         if para.skip_r or not hasattr(self, "par"):
             return
-        if para.subtract and self.dims == 3:
-            raise _not_ported("the subtraction pipeline (para.subtract)")
         self.imgs_ft = None
         self._brick_cache = None
         t0 = time.perf_counter()
         self.reconstruct(r_u=self.max_r, avg=False, final=True)
-        self.solvent_flatten(para.perform_mask)
         self._sync()
         self.final_timing = {"reconstruction": time.perf_counter() - t0,
                              **{f"reco_{k}": v
                                 for k, v in self.reco_timing.items()}}
+        if para.subtract and self.dims == 3:
+            t0 = time.perf_counter()
+            self._subtract_pipeline()
+            self._sync()
+            self.final_timing["subtract"] = time.perf_counter() - t0
+        else:
+            self.solvent_flatten(para.perform_mask)
         self.save_outputs(final=True)
+
+    def avg_hemi(self):
+        """Model::avgHemi (src/Model.cpp:1732): both halves' references
+        become their mean."""
+        mean = (self.refs[0] + self.refs[1]) / 2
+        self.refs = torch.stack([mean, mean])
+
+    def _subtract_pipeline(self):
+        """Signal subtraction (src/Optimiser.cpp:4190-4363): the masked
+        stack rebuilt, the region centre read from ``region_centre``'s map
+        (its density centroid; the box centre without one), then two
+        passes of hemisphere averaging and solvent flattening, pass 0 with
+        the spherical mask followed by norm correction and the Nyquist
+        reconstruction again, pass 1 with the provided mask; then
+        ``save_subtract``."""
+        para = self.para
+        self._rebuild_masked_stack()
+        self.region_centre = (_centroid(read_mrc(para.region_centre))
+                              if para.region_centre else np.zeros(3))
+        for pass_ in (0, 1):
+            self.avg_hemi()
+            self.solvent_flatten(pass_ == 1)
+            if pass_ == 0:
+                self.norm_correction()
+                self.reconstruct(r_u=self.max_r, avg=False, final=True)
+        self.save_subtract()
+
+    SUBTRACT_BATCH = 64  # images projected at a time by save_subtract
+
+    def save_subtract(self):
+        """Write Subtract_Rank_000000.mrcs and Meta_Subtract.thu
+        (saveSubtract, src/Optimiser.cpp:8418-8530): for the identity and
+        then every symmetry element g, image by image, imgOri - CTF *
+        proj(class reference at g^T R), translated by -(tran - offset) -
+        (g^T R)^T c, c the region centre, so that the region lands at the
+        box centre. The stack is g-major, slice gi N + l + 1 holding image
+        l; Meta_Subtract.thu has one row per (image, g), image-major, with
+        the g-rotated pose and the translations moved into the subtracted
+        frame (saveDatabase(subtract=true), :8296-8361)."""
+        para, n, dev = self.para, self.n, self.device
+        out = para.output_directory or "./"
+        os.makedirs(out, exist_ok=True)
+        prefix = os.path.join(out, para.dst_prefix + para.output_file_prefix)
+        vol_fts = [projector.build_projectee_3d(self.refs[0, k], pf=para.pf)
+                   for k in range(para.k)]
+        sym_rots = ([np.eye(3, dtype=np.float32)]
+                    + [np.asarray(r, np.float32) for r in self.sym.rot])
+        f = torch.arange(n, dtype=torch.float32, device=dev) - n // 2
+        colf = f[None, :].expand(n, n).reshape(-1)
+        rowf = f[:, None].expand(n, n).reshape(-1)
+        cp = self.ctf_params
+        c2d = ctf_ops.ctf_pixels(
+            colf, rowf, n, para.pixel_size, cp["voltage"], cp["defocus_u"],
+            cp["defocus_v"], cp["defocus_theta"], cp["cs"],
+            cp["amp_contrast"], cp["phase_shift"],
+            defocus_factor=self.par["topD"]).reshape(2, self.s_slots, n, n)
+        t_rel = self.par["topT"] - self.offsets                # (2, S, 2)
+        cls = self.par["c"]
+        rot_b = quat.rotate3d(self.par["topR"])                # (2, S, 3, 3)
+        rc = self._t(self.region_centre.astype(np.float32))
+        stacks, q_rows = [], []
+        for r_g in sym_rots:
+            rot_c = torch.einsum("ij,hsjk->hsik", self._t(r_g.T), rot_b)
+            q_rows.append(self._from_plane(quat.quat_from_matrix(rot_c)))
+            pri = torch.zeros((2, self.s_slots, n, n), dtype=torch.complex64,
+                              device=dev)
+            for k in range(para.k):
+                idx = torch.nonzero(cls == k)
+                for s0 in range(0, idx.shape[0], self.SUBTRACT_BATCH):
+                    h, sl = idx[s0:s0 + self.SUBTRACT_BATCH].unbind(1)
+                    pri[h, sl] = projector.project_pixels_3d(
+                        vol_fts[k], rot_c[h, sl], colf, rowf,
+                        pf=para.pf).reshape(-1, n, n)
+            diff = self.imgs_ft_ori - c2d * translate_ft(
+                pri, t_rel[..., 0], t_rel[..., 1])
+            reg = torch.einsum("hsji,j->hsi", rot_c, rc)
+            diff = translate_ft(diff, -t_rel[..., 0] - reg[..., 0],
+                                -t_rel[..., 1] - reg[..., 1])
+            stacks.append(self._from_plane(
+                fft_ops.ifft2_center(diff).real.float()))
+            del pri, diff
+        write_mrc(f"{prefix}Subtract_Rank_000000.mrcs",
+                  np.concatenate(stacks, axis=0), voxel_size=para.pixel_size)
+
+        # the particle translations move into the subtracted frame
+        self.par = {**self.par, "t": self.par["t"] - t_rel[:, :, None, :],
+                    "topT": self.par["topT"] - t_rel}
+        flat = {k: self._from_plane(v) for k, v in self.par.items()}
+        n_imgs, g_all = self.n_imgs, len(sym_rots)
+        rep = lambda a: np.repeat(np.asarray(a), g_all, axis=0)
+        q_all = np.stack(q_rows, axis=1).reshape(n_imgs * g_all, 4)
+        cpf = {k: rep(self._from_plane(v)) for k, v in cp.items()}
+        micros = getattr(self, "micrograph_paths", ["none"] * n_imgs)
+        table = make_table(
+            n_imgs * g_all,
+            particle_paths=[f"{gi * n_imgs + l + 1}@Subtract_Rank_000000.mrcs"
+                            for l in range(n_imgs) for gi in range(g_all)],
+            micrograph_paths=[m for m in micros for _ in range(g_all)],
+            voltage=cpf["voltage"], defocus_u=cpf["defocus_u"],
+            defocus_v=cpf["defocus_v"], defocus_theta=cpf["defocus_theta"],
+            cs=cpf["cs"], amplitude_contrast=cpf["amp_contrast"],
+            phase_shift=cpf["phase_shift"],
+            group_id=rep(self.group_ids + 1), class_id=rep(flat["c"]),
+            quat_0=q_all[:, 0], quat_1=q_all[:, 1], quat_2=q_all[:, 2],
+            quat_3=q_all[:, 3], k1=rep(flat["k1"]), k2=rep(flat["k2"]),
+            k3=rep(flat["k3"]), translation_x=rep(flat["topT"][:, 0]),
+            translation_y=rep(flat["topT"][:, 1]),
+            std_translation_x=rep(flat["s0"]),
+            std_translation_y=rep(flat["s1"]),
+            defocus_factor=rep(flat["topD"]),
+            std_defocus_factor=rep(flat["sD"]),
+            score=rep(self._from_plane(self.scores)))
+        write_thu(f"{prefix}Meta_Subtract.thu", table)
 
     # -------------------------------------------------------------- output
 

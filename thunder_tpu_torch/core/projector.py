@@ -6,6 +6,8 @@ src/Projector.cpp:97-356).
 - ``build_brick_projectee_3d``: crop that spectrum to the band and pack it
   into the brick gather table (Hermitian half-space with ``half=True``);
 - ``project_brick_3d``: one row fetch + 8-wide dot per sample;
+- ``project_pixels_3d``: ring pixels of central slices of the full padded
+  spectrum (the tools and the subtraction pipeline);
 - ``project_full_3d``: full n x n central slices (data synthesis, tools);
 - the 2D counterparts of the first three (2D classification: a class
   average is rotated in plane, ``slice_coords_2d``).
@@ -17,6 +19,7 @@ import torch
 
 from ..ops import brick
 from ..ops.fft import fft2_center, fft3_center
+from ..ops.interp import linear_gather
 from ..ops.kernels import tik_rl
 
 
@@ -113,33 +116,13 @@ def project_brick_3d(tab, rot, col, row, pf=2):
     return brick.gather_vol3_half(tab, slice_coords_3d(rot, col, row, pf=pf))
 
 
-def _linear_gather(grid, coords):
-    """Trilinear interpolation of a (n, n, n) grid at centered array-order
-    (z, y, x) coordinates (..., 3), out-of-range corners contributing 0 —
-    port of
-    ``thunder_tpu.ops.interp.linear_gather`` for 3D."""
-    n = grid.shape[-1]
-    base = torch.floor(coords)
-    frac = (coords - base).float()
-    base = base.long() + n // 2
-    flat = torch.zeros(coords.shape[:-1] + (1,), dtype=torch.long,
-                       device=coords.device)
-    weights = torch.ones(coords.shape[:-1] + (1,), dtype=torch.float32,
-                         device=coords.device)
-    valid = torch.ones(coords.shape[:-1] + (1,), dtype=torch.bool,
-                       device=coords.device)
-    off = torch.tensor([0, 1], device=coords.device)
-    for d in range(3):
-        b2 = base[..., d][..., None, None] + off      # (..., 1, 2)
-        f = frac[..., d][..., None]
-        w2 = weights[..., :, None] * torch.stack([1 - f, f], -1)
-        v2 = valid[..., :, None] & (b2 >= 0) & (b2 < n)
-        flat2 = flat[..., :, None] * n + torch.clamp(b2, 0, n - 1)
-        sh = coords.shape[:-1] + (-1,)
-        weights, valid, flat = w2.reshape(sh), v2.reshape(sh), flat2.reshape(sh)
-    vals = grid.reshape(-1)[flat]
-    w = torch.where(valid, weights, torch.zeros_like(weights))
-    return torch.sum(vals * w.to(vals.real.dtype), dim=-1)
+def project_pixels_3d(vol_ft, rot, col, row, pf=2):
+    """Central-slice projection at ring pixels of a padded centered
+    spectrum (m, m, m) (src/Projector.cpp:222-260): rot (..., 3, 3),
+    col/row (P,) signed image frequencies -> (..., P) complex, trilinear
+    (the JAX package's ``interp="linear"``, the only mode the port's
+    callers use)."""
+    return linear_gather(vol_ft, slice_coords_3d(rot, col, row, pf=pf))
 
 
 def project_full_3d(vol_ft, rot, n, max_radius, pf=2):
@@ -149,10 +132,8 @@ def project_full_3d(vol_ft, rot, n, max_radius, pf=2):
     f = torch.arange(n, dtype=torch.float32, device=vol_ft.device) - n // 2
     colg = f[None, :].expand(n, n).reshape(-1)
     rowg = f[:, None].expand(n, n).reshape(-1)
-    plane = torch.stack([colg * pf, rowg * pf, torch.zeros_like(colg)], -1)
-    coords = torch.einsum("...ij,pj->...pi", rot.float(), plane)
-    coords = torch.flip(coords, dims=(-1,))  # array (z, y, x) order
-    vals = _linear_gather(vol_ft, coords).reshape(rot.shape[:-2] + (n, n))
+    vals = project_pixels_3d(vol_ft, rot, colg, rowg, pf).reshape(
+        rot.shape[:-2] + (n, n))
     r2 = (colg ** 2 + rowg ** 2).reshape(n, n)
     return torch.where(r2 < float(max_radius) ** 2, vals,
                        torch.zeros_like(vals))

@@ -9,6 +9,14 @@ max||C|-1| < 1e-2 or no decrease (<= 30 iterations); F *= W; zero-embed
 into the padded grid, inverse FFT, extract the n-box, divide by the
 trilinear grid-correction profile. ``dims = 2`` runs the same contract on
 2D class averages (2D classification).
+
+The full-grid path of the tools (``thunder_tpu_torch.cli``'s
+``reconstruct`` and the like): ``empty_state`` holds padded (F, T)
+accumulators and the re-centring offsets, ``insert_pixels_3d`` scatters
+pose-weighted ring pixels and their Hermitian mirrors into them with
+``ops.interp.linear_scatter_add``, and ``reconstruct_cropped`` inverts
+them as they are: its crop mc is then the padded grid pf n (the JAX
+package's full-grid ``reconstruct``).
 """
 
 import numpy as np
@@ -17,6 +25,7 @@ import torch
 from ..dtypes import complex_dtype, real_dtype
 from ..ops import brick
 from ..ops.fft import fft2_center, fft3_center, ifft2_center, ifft3_center
+from ..ops.interp import linear_scatter_add
 from ..ops.kernels import mkb_rl, tik_rl
 
 # include/Reconstructor.h:61-75
@@ -169,3 +178,45 @@ def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
     r_rl = torch.sqrt(_radius_sq_grid(size, dims, dev)) / (pf * size)
     out = out / tik_rl(r_rl)
     return (out, w) if return_w else out
+
+
+def empty_state(size, pf=2, device=None):
+    """Zeroed padded 3D accumulators F (complex) and T (real) of
+    (pf size)^3 and the offset sums ox, oy, counter."""
+    m = size * pf
+    shape = (m, m, m)
+    zero = lambda: torch.zeros((), dtype=real_dtype, device=device)
+    return {"F": torch.zeros(shape, dtype=complex_dtype, device=device),
+            "T": torch.zeros(shape, dtype=real_dtype, device=device),
+            "ox": zero(), "oy": zero(), "counter": zero()}
+
+
+def insert_pixels_3d(state, values, ctf, rot, col, row, w, pf=2,
+                     pixel_mask=None):
+    """Scatter one batch of pose-weighted ring pixels into the padded
+    accumulators (insertP, src/Reconstructor.cpp:569-928): values (B, P)
+    complex, ctf (B, P), rot (B, 3, 3), col/row (P,), w (B,). Each value
+    goes to R (col pf, row pf, 0) and its conjugate to the mirror point,
+    value * CTF * w into F and CTF^2 * w into T. Returns the new state."""
+    from .projector import slice_coords_3d
+
+    coords = slice_coords_3d(rot, col, row, pf=pf)
+    wv = w[:, None].to(real_dtype)
+    if pixel_mask is not None:
+        wv = wv * pixel_mask[None, :]
+    fv = values * ctf * wv
+    tv = ctf ** 2 * wv
+    f = linear_scatter_add(state["F"], coords, fv)
+    f = linear_scatter_add(f, -coords, torch.conj(fv))
+    t = linear_scatter_add(state["T"], coords, tv)
+    t = linear_scatter_add(t, -coords, tv)
+    return {**state, "F": f, "T": t}
+
+
+def insert_offsets(state, tx, ty, w):
+    """Accumulate weighted translation offsets for re-centring
+    (allReduceO)."""
+    return {**state, "ox": state["ox"] + torch.sum(tx * w),
+            "oy": state["oy"] + torch.sum(ty * w),
+            "counter": state["counter"] + torch.sum(w)}
+

@@ -16,3 +16,5 @@ DEFAULT_DEVICE = "cuda"
 def resolve_device(device=None):
     """``None`` -> the CUDA device; anything else -> ``torch.device``."""
     return torch.device(DEFAULT_DEVICE if device is None else device)
+
+FSC_CUTOFF = 0.143  # the FSC threshold resolutions are reported at

@@ -55,3 +55,26 @@ def radius_grid_2d(n, device=None):
 def radius_grid_3d(n, device=None):
     x, y, z = freq_grid_3d(n, device)
     return torch.sqrt(x.float() ** 2 + y.float() ** 2 + z.float() ** 2)
+
+
+def pad_ft_center(ft, pad, spatial_dims):
+    """Zero-pad a centered n^d spectrum to (pad n)^d (the reference's
+    PAD_SIZE = pf n, include/Reconstructor.h:57); leading axes are kept."""
+    if pad == 1:
+        return ft
+    n = ft.shape[-1]
+    m = n * pad
+    lo = m // 2 - n // 2
+    return torch.nn.functional.pad(ft, (lo, m - n - lo) * spatial_dims)
+
+
+def crop_ft_center(ft, out_n, spatial_dims):
+    """Crop a centered spectrum to out_n per spatial axis (the inverse of
+    ``pad_ft_center`` within the band)."""
+    n = ft.shape[-1]
+    if out_n == n:
+        return ft
+    lo = n // 2 - out_n // 2
+    idx = ((slice(None),) * (ft.dim() - spatial_dims)
+           + (slice(lo, lo + out_n),) * spatial_dims)
+    return ft[idx]

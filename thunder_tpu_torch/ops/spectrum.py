@@ -78,3 +78,32 @@ def random_phase(ft, r, spatial_dims, phi):
     phi = (phi - flip).float()
     rot = torch.complex(torch.cos(phi), torch.sin(phi))
     return torch.where(u > r, ft * rot, ft)
+
+
+def res_p2a(res_p, size, pixel_size):
+    """Shell index -> resolution in angstroms (Spectrum.h resP2A)."""
+    return size * pixel_size / max(res_p, 1e-30)
+
+
+def res_a2p(res_a, size, pixel_size):
+    """Resolution in angstroms -> shell index (Spectrum.h resA2P)."""
+    return size * pixel_size / res_a
+
+
+def b_factor_est(ft, size, r_high, r_low):
+    """Guinier fit: the slope of log(mean |F| per shell) against
+    (shell / size)^2 over shells [r_low, r_high), times 2, the B that
+    ``filters.b_factor_filter`` takes (Spectrum.cpp:414-440). Returns a
+    float (negative for a decaying spectrum)."""
+    spatial_dims = ft.dim()
+    amp = shell_average(torch.abs(ft), size // 2, spatial_dims)
+    shells = torch.arange(size // 2, device=ft.device)
+    w = ((shells >= r_low) & (shells < r_high)).float()
+    x = (shells.float() / size) ** 2
+    y = torch.log(torch.clamp(amp, min=1e-30))
+    sw = torch.sum(w)
+    mx = torch.sum(w * x) / sw
+    my = torch.sum(w * y) / sw
+    slope = torch.sum(w * (x - mx) * (y - my)) / torch.clamp(
+        torch.sum(w * (x - mx) ** 2), min=1e-30)
+    return float(2 * slope)
