@@ -7,6 +7,9 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py --cli      # build + path D (phase 9) only
     python3 chip_smoke.py --cli-study  # build + path D's run, 10 seeds
     python3 chip_smoke.py --data-study  # + the round on bench.py's data
+    python3 chip_smoke.py --sym      # build + path E (phase 10) only
+    python3 chip_smoke.py --mkb      # build + path F (phase 11) only
+    python3 chip_smoke.py --sym-study  # build + path E's phantom designs
 
 Phases, each printing a flushed progress line with elapsed seconds:
 
@@ -116,8 +119,31 @@ Phases, each printing a flushed progress line with elapsed seconds:
    ``average``, ``minus``, ``resize`` 160 -> 128, ``alignz``, ``view
    --slices``, ``project``, ``select --keep``; each one's seconds, the
    run's and the resume's, and their peak memory, beside the card line;
-10. a JSON line of per-kernel numbers (launches summed over the rounds of
-   phases 5a-b, 6, 7, 8 and 9, and per round or run; K1's readings at the
+10. path E, general point-group symmetry: bench.py's Para with sym I (17
+   scan rotations in I's fundamental domain; 58 of its 59 rotations are
+   not grid-exact and are gathered by ``symmetrize_cropped``) on 256
+   images of an I-symmetric phantom (``sym_phantom``: 30 small Gaussians,
+   each under the 60 matrices of the port's ``Symmetry("I")``, noise
+   0.3), files into a temporary directory: a global round, a local round
+   pinned at r = 40, then ``run(max_iter=1)``: one more round and the
+   final round (mc = 317). Every round holds K1 (global round only), K2
+   four times, ROUND_ANG_MAX over the nearest of the 60 mates and
+   ROUND_RES_MIN; ``symmetrize_cropped`` is held to the plain full-grid
+   ``symmetrize`` on the global round's folded half 0 (mc = 165) at
+   SYM_CHECK_TOL; the symmetrisation's seconds are read at every band
+   (165, 293, 317); the joined final map's FSC against the phantom > 0.5
+   over shells 1 .. FINAL_FSC_SHELLS and its correlation with its own
+   I-average > SYM_AVG_CORR_MIN;
+11. path F, the MKB insert: phase 5's data with ``mkb_kernel``: a global
+   round and a local round pinned at r = 40, each holding K1 (global
+   round only), K2 launched 0 times (the MKB insert adds its 8 row sets a
+   chunk with ``index_add_``), the pose and resolution bars and half 0's
+   MKB table against the exact f64 sum of the same rows at MKB_TOL;
+   between them the MKB and the trilinear reference from the same state
+   and draws, correlating above MKB_TRI_CORR_MIN, both inserts timed;
+   after them the MKB insert timed at the local band;
+12. a JSON line of per-kernel numbers (launches summed over the rounds of
+   phases 5a-b and 6-11, and per round or run; K1's readings at the
    class-stacked shapes; K2's on the fused class table and on a
    final-band chunk), the card line again, and the final status line
    {"ok": true, "device": {...}}.
@@ -136,6 +162,11 @@ then both classification paths from the JAX package's default of
 identical references, three global rounds each, with purity and
 resolution per round (no bounds).
 
+``--sym-study`` runs, after the build, path E's global round and a
+local round pinned at r = 40 on each phantom design of
+SYM_STUDY_DESIGNS, without bounds, and prints their pose errors and
+shells: the study path E's phantom was chosen from.
+
 ``--cli-study`` runs, after the build and nothing else, path D's ``cli
 run``, the reconstruct and postprocess tools and its two resumes on the
 same files once per seed of ``cli_study`` (a repeated seed differs only by
@@ -144,7 +175,7 @@ run's readings of what path D holds to bars and their ranges: the spread
 those bars are set from.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-Path C's and path D's files go to temporary directories outside the
+Path C's, D's and E's files go to temporary directories outside the
 repository, removed at their ends.
 It imports nothing of JAX or of the JAX package: the synthetic data are
 made with NumPy and the port's own projector, CTF and translation code.
@@ -254,6 +285,40 @@ RESUME_HI_ANG_MAX = 0.6
 SUB_RESID_MAX = 4.6
 SUB_HI_MAX = 6.0
 SUB_TRUTH_MAX = 1.05
+# path E, general point-group symmetry: bench.py's Para with sym I on 256
+# images of an I-symmetric phantom (``sym_phantom`` of SYM_DESIGN: 30
+# small Gaussians within 0.25 n of the centre, each under the 60 matrices
+# of the port's Symmetry("I"), noise NOISE); every round held to
+# ROUND_ANG_MAX (the nearest of 60 mates) and ROUND_RES_MIN, the joined
+# final map to path C's FSC bar and to SYM_AVG_CORR_MIN with its own
+# I-average, symmetrize_cropped to the plain full-grid symmetrize at
+# SYM_CHECK_TOL of the peak. The design comes from ``--sym-study``
+# (SYM_STUDY_DESIGNS; PERF.md): with blobs of a few pixels the 60 copies
+# make a near-spherical map at the global round's band (r = 8), whose
+# projections barely turn with the orientation (the first design, three
+# blobs and four small Gaussians, read 21.0 deg at the global round and
+# 18.4 deg after a local round); small Gaussians carry the orientation (2.92 and 0.16
+# deg; NVIDIA H100 80GB HBM3, 700.00 W). Path F, the MKB insert on phase
+# 5's data: each round's half-0 MKB table at MKB_TOL of its exact f64
+# sum, the MKB reference from the post-global state above
+# MKB_TRI_CORR_MIN against the trilinear one (the JAX package's bar,
+# tests/test_optimiser_parity.py). The bars are the issue's, checked
+# against the predictions in PERF.md before the first card run
+SYM_GROUP = "I"
+SYM_SEED = 3
+SYM_DESIGN = {"axes": (), "blobs": 0, "blob_r": 0.25, "atoms": 30}
+SYM_STUDY_DESIGNS = (
+    {"blobs": 3, "blob_r": 0.2, "atoms": 4},
+    {"atoms": 12},
+    {},
+    {"atoms": 40},
+    {"atoms": 12, "axes": ((5, 0.3, 1 / 20, 1.0),)},
+    {"axes": ((5, 0.3, 1 / 20, 1.0),)},
+)
+SYM_AVG_CORR_MIN = 0.99
+SYM_CHECK_TOL = 1e-5
+MKB_TOL = 1e-5
+MKB_TRI_CORR_MIN = 0.9
 
 
 def log(msg):
@@ -958,22 +1023,23 @@ def pin_local(opt, r=R_LOCAL):
     opt.ladder.n_no_decrease = 0
 
 
-def pose_error(opt, q_true):
-    """Per-image angle (deg) from the top pose to the nearest C4 mate of
-    the true pose (``pose_error_q``)."""
-    return pose_error_q(opt.best_quat, q_true)
+def pose_error(opt, q_true, sym="C4"):
+    """Per-image angle (deg) from the top pose to the nearest mate of the
+    true pose under the group ``sym`` (``pose_error_q``)."""
+    return pose_error_q(opt.best_quat, q_true, sym)
 
 
-def pose_error_q(q_est, q_true):
-    """Per-image angle (deg) from ``q_est`` to the nearest C4 mate of the
-    true pose. The scan reduces rotations into the C4 fundamental domain
-    by LEFT multiplication (symmetry_counterpart: conj(g) q), and a
-    C4-symmetric reference projects alike at q and g q."""
+def pose_error_q(q_est, q_true, sym="C4"):
+    """Per-image angle (deg) from ``q_est`` to the nearest mate g q_true of
+    the true pose, g in the point group ``sym`` (C4 for paths A-D, I for
+    path E). The scan reduces rotations into the fundamental domain by
+    LEFT multiplication (symmetry_counterpart: conj(g) q), and a
+    symmetric reference projects alike at q and g q."""
     import numpy as np
 
     from thunder_tpu_torch.geom.symmetry import Symmetry
 
-    mates = np.concatenate([[[1.0, 0, 0, 0]], Symmetry("C4").quat])
+    mates = Symmetry(sym).quat_with_identity()
     best = np.zeros(len(q_est))
     w2, x2, y2, z2 = q_true.T
     for w1, x1, y1, z1 in mates:
@@ -1036,12 +1102,13 @@ def check_maps(opt, n):
         raise AssertionError("non-finite FSC")
 
 
-def check_poses(opt, q_true, rec, label, bounds):
-    """Median top-pose error against the truth (C4 mates allowed) under
-    ROUND_ANG_MAX and the FSC-0.143 shell at ROUND_RES_MIN or above."""
+def check_poses(opt, q_true, rec, label, bounds, sym="C4"):
+    """Median top-pose error against the truth (the mates under ``sym``
+    allowed) under ROUND_ANG_MAX and the FSC-0.143 shell at ROUND_RES_MIN
+    or above."""
     import numpy as np
 
-    ang = pose_error(opt, q_true)
+    ang = pose_error(opt, q_true, sym)
     med = float(np.median(ang))
     log(f"{label} pose recovery: median top-pose error {med:.2f} deg "
         f"(p25 {np.percentile(ang, 25):.2f}, p75 {np.percentile(ang, 75):.2f}"
@@ -1081,8 +1148,10 @@ def check_local_state(opt, label):
         raise AssertionError(f"{label}: non-finite offsets")
 
 
-def make_optimiser(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True):
-    """bench.py's optimiser on synthetic data; returns (opt, true quats)."""
+def make_optimiser(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True,
+                   para=None):
+    """bench.py's optimiser (or one of ``para``) on synthetic data; returns
+    (opt, true quats)."""
     from thunder_tpu_torch.core.optimiser import Optimiser
 
     vol, stack, q_true, cp = synthetic_dataset(dev, n, b, noise=noise,
@@ -1090,7 +1159,7 @@ def make_optimiser(dev, n=160, b=N_PARTICLES, noise=NOISE, symmetric=True):
     log(f"synthetic stack built: {stack.shape} ({b} particles as in "
         f"bench.py), noise {noise} x signal std, "
         f"{'C4-symmetric' if symmetric else 'asymmetric'} phantom")
-    opt = Optimiser(bench_para(n), device=dev)
+    opt = Optimiser(para or bench_para(n), device=dev)
     opt.set_data(stack, cp)
     opt.init_reference(vol=vol)
     opt.init_sigma()
@@ -2699,6 +2768,494 @@ def best_map_purity(est, cls, k):
             hits += np.bincount(cls[sel], minlength=k).max()
     return hits / len(cls)
 
+# ------------------------------------------- path E: general point groups
+
+def fold_axis(rots, fold):
+    """The axis (x, y, z) of a rotation by 2 pi / ``fold`` among ``rots``
+    (G, 3, 3)."""
+    import numpy as np
+
+    ang = np.arccos(np.clip((np.trace(rots, axis1=1, axis2=2) - 1) / 2,
+                            -1, 1))
+    r = rots[int(np.argmin(np.abs(ang - 2 * np.pi / fold)))]
+    ax = np.array([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]])
+    return ax / np.linalg.norm(ax)
+
+
+def sym_phantom(dev, n, rng, sym=SYM_GROUP, design=None):
+    """A phantom (n, n, n) NumPy with the point group ``sym``, of
+    ``design`` (default SYM_DESIGN): for each (fold, radius, sd, height)
+    of "axes" a Gaussian blob on an axis of that fold at that radius (sd
+    and radius as fractions of n; for I the 12 five-fold, 20 three-fold
+    and 30 two-fold positions, a faceted shell whose projections turn with
+    the orientation at low resolution), "blobs" Gaussian blobs (sd n/32
+    .. n/20 px, height 1) at random centres within "blob_r" n of the
+    centre, and "atoms" small ones (sd ATOM_SD px, height ATOM_HEIGHT:
+    detail out to high shells) likewise; each centred at c and copied to
+    g c under every matrix g of the port's own ``Symmetry(sym)`` (the
+    identity included; copies that coincide add), c and g c in (x, y, z)
+    against the (z, y, x) array as the refinement reads them. Built on
+    ``dev``."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.geom.symmetry import Symmetry
+
+    d = dict(SYM_DESIGN, **(design or {}))
+    sy = Symmetry(sym)
+    rots = sy.rot_with_identity()
+    ax = torch.arange(n, dtype=torch.float32, device=dev) - n // 2
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    vol = torch.zeros((n, n, n), dtype=torch.float32, device=dev)
+    r_b = d["blob_r"] * n
+    specs = [(rng.uniform(-r_b, r_b, 3), rng.uniform(n / 32, n / 20), 1.0)
+             for _ in range(d["blobs"])]
+    specs += [(rng.uniform(-r_b, r_b, 3), ATOM_SD, ATOM_HEIGHT)
+              for _ in range(d["atoms"])]
+    specs += [(r * n * fold_axis(sy.rot, fold), sd * n, h / fold)
+              for fold, r, sd, h in d["axes"]]
+
+    # one set of distinct centres per spec: coinciding copies (a centre on
+    # an axis) are counted by height / fold above
+    for c, sd, height in specs:
+        for cx, cy, cz in rots @ c:
+            vol += height * torch.exp(-((xx - cx) ** 2 + (yy - cy) ** 2
+                                        + (zz - cz) ** 2) / (2 * sd * sd))
+    return vol.cpu().numpy().astype(np.float32)
+
+
+def sym_average(vol, rots):
+    """The mean of a real-space map (n, n, n) over its point group with
+    the identity, rots (G, 3, 3) without it: mean_g vol(g x), trilinear,
+    about the box centre."""
+    import torch
+
+    from thunder_tpu_torch.ops.interp import linear_gather
+
+    n = vol.shape[-1]
+    ax = torch.arange(n, dtype=torch.float32, device=vol.device) - n // 2
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    xyz = torch.stack([xx, yy, zz], -1)
+    acc = vol.clone()
+    for rot in torch.as_tensor(rots, dtype=torch.float32, device=vol.device):
+        acc += linear_gather(vol, torch.flip(xyz @ rot.T, dims=(-1,)))
+    return acc / (len(rots) + 1)
+
+
+def map_corr(a, b):
+    """Pearson correlation of two maps (float64)."""
+    import torch
+
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    a, b = a - a.mean(), b - b.mean()
+    return float(torch.dot(a, b) / torch.sqrt(torch.dot(a, a)
+                                              * torch.dot(b, b)))
+
+
+def sym_optimiser(dev, out_dir, n=160, b=N_PARTICLES, sym=SYM_GROUP,
+                  design=None):
+    """Path E's optimiser: bench.py's Para with ``sym`` (trilinear insert,
+    files into ``out_dir``) on ``b`` images of ``sym_phantom(design)``
+    made as in phase 5 (``project_stack``, noise NOISE). Returns (opt,
+    phantom, true quats)."""
+    import dataclasses
+
+    import numpy as np
+
+    from thunder_tpu_torch.core.optimiser import Optimiser
+
+    rng = np.random.default_rng(SYM_SEED)
+    vol = sym_phantom(dev, n, rng, sym, design)
+    stack, q_true, cp = project_stack(dev, vol, b, rng, NOISE)
+    opt = Optimiser(dataclasses.replace(bench_para(n), sym=sym,
+                                        output_directory=out_dir), device=dev)
+    log(f"path E stack built: {stack.shape}, {sym}-symmetric phantom "
+        f"({json.dumps(dict(SYM_DESIGN, **(design or {})))} under "
+        f"{opt.sym.n_elements + 1} matrices), noise {NOISE}")
+    opt.set_data(stack, cp)
+    opt.init_reference(vol=vol)
+    opt.init_sigma()
+    opt._sync()
+    return opt, vol, q_true
+
+
+class SymTimer:
+    """Wraps ``engine.symmetrize_halves`` while a path runs: each call's
+    seconds (synchronised) by band mc, and the first call's inputs (half
+    0's folded F and T, copied, the general rotations and r_u)."""
+
+    def __init__(self, opt):
+        from thunder_tpu_torch.parallel import engine
+
+        self.opt, self.engine = opt, engine
+        self.real = engine.symmetrize_halves
+        self.seconds, self.first = {}, None
+
+    def __call__(self, f, t, exact_ops, general_rots, *, pf, r_u):
+        if self.first is None:
+            self.first = (f[0].clone(), t[0].clone(), general_rots, r_u)
+        self.opt._sync()
+        t0 = time.perf_counter()
+        out = self.real(f, t, exact_ops, general_rots, pf=pf, r_u=r_u)
+        self.opt._sync()
+        self.seconds.setdefault(int(f.shape[-1]), []).append(
+            time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        self.engine.symmetrize_halves = self
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.symmetrize_halves = self.real
+
+
+def check_sym_cropped(dev, first, label):
+    """``symmetrize_cropped`` (band-cropped grid, brick row gathers, in
+    z-slabs) against the plain full-grid ``symmetrize`` (trilinear
+    ``linear_gather`` of F and of T over the whole grid) on one half's
+    folded accumulators of the round, at SYM_CHECK_TOL of the peak; both
+    timed. Returns the readings."""
+    import torch
+
+    from thunder_tpu_torch.core import reconstructor
+
+    f, t, rots, r_u = first
+    mc = f.shape[-1]
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    f_c, t_c = reconstructor.symmetrize_cropped(f, t, rots, r_u, pf=2)
+    sync()
+    t1 = time.perf_counter()
+    plain = reconstructor.symmetrize({"F": f, "T": t}, rots, r_u, pf=2)
+    sync()
+    t2 = time.perf_counter()
+    err_f = float(torch.amax(torch.abs(f_c - plain["F"]))
+                  / torch.amax(torch.abs(plain["F"])))
+    err_t = float(torch.amax(torch.abs(t_c - plain["T"]))
+                  / torch.amax(torch.abs(plain["T"])))
+    out = dict(mc=mc, general_rotations=len(rots), err_f=err_f, err_t=err_t,
+               cropped_s=t1 - t0, plain_s=t2 - t1)
+    log(f"{label}: symmetrize_cropped vs plain symmetrize at mc {mc} "
+        f"({len(rots)} general rotations): " + json.dumps(out))
+    if not (err_f < SYM_CHECK_TOL and err_t < SYM_CHECK_TOL):
+        raise AssertionError(f"{label}: symmetrize_cropped off the plain "
+                             f"symmetrize: {out}")
+    return out
+
+
+def run_sym_path(dev, n=160, b=N_PARTICLES):
+    """Path E: refinement under the icosahedral group I (58 of its 59
+    rotations general) at bench.py's shape on 256 images of an
+    I-symmetric phantom (``sym_optimiser``): a global round, a local round
+    pinned at r = 40, then ``run(max_iter=1)``: one more round and the
+    final round (the Nyquist band, mc = 317), files in a temporary
+    directory. Holds every round's launches (K1 in the global round only,
+    K2 four times in every round), poses (the nearest of 60 mates) and
+    resolution; ``symmetrize_cropped`` against the plain ``symmetrize``
+    on the global round's folded half 0 (mc = 165); the joined map's FSC
+    against the phantom over shells 1 .. FINAL_FSC_SHELLS and its
+    correlation with its own I-average. Returns the launches per round."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.core.optimiser import SEARCH_TYPE_GLOBAL
+    from thunder_tpu_torch.ops import fft as fft_ops
+    from thunder_tpu_torch.ops import insert, likelihood, spectrum
+
+    out_dir = tempfile.mkdtemp(prefix="thunder_smoke_sym_")
+    try:
+        opt, vol, q_true = sym_optimiser(dev, out_dir, n, b)
+        per, readings = {}, {}
+        bands = {opt.insert_mc(), opt.insert_mc(opt.max_r)}
+        with SymTimer(opt) as sym_t:
+            rec, wall, per["sym_path_global"], _ = drive_round(
+                opt, "path E global round")
+            expect_launches("path E global round", per["sym_path_global"],
+                            True, 4)
+            check_poses(opt, q_true, rec, "path E global round", True,
+                        SYM_GROUP)
+            readings["global_s"] = wall
+            readings["cropped_vs_plain"] = check_sym_cropped(
+                dev, sym_t.first, "path E global round")
+            sym_t.first = None
+            pin_local(opt)
+            bands.add(opt.insert_mc())
+            rec, wall, per["sym_path_local"], _ = drive_round(
+                opt, "path E local round")
+            expect_launches("path E local round", per["sym_path_local"],
+                            False, 4)
+            check_poses(opt, q_true, rec, "path E local round", True,
+                        SYM_GROUP)
+            check_local_state(opt, "path E local round")
+            readings["local_s"] = wall
+
+            final = {}
+            finalise = opt.finalise
+
+            def counted_finalise():
+                opt._sync()
+                final["round"] = {
+                    "global_scan": likelihood.LAUNCHES["scan_fused"],
+                    "insert_update": insert.LAUNCHES["insert_update"]}
+                likelihood.LAUNCHES["scan_fused"] = 0
+                insert.LAUNCHES["insert_update"] = 0
+                t0 = time.perf_counter()
+                finalise()
+                opt._sync()
+                final["wall"] = time.perf_counter() - t0
+
+            opt.finalise = counted_finalise
+            likelihood.LAUNCHES["scan_fused"] = 0
+            insert.LAUNCHES["insert_update"] = 0
+            t0 = time.perf_counter()
+            opt.run(max_iter=1)
+            readings["run_s"] = time.perf_counter() - t0
+            per["sym_path_run_round"] = final["round"]
+            per["sym_path_final"] = {
+                "global_scan": likelihood.LAUNCHES["scan_fused"],
+                "insert_update": insert.LAUNCHES["insert_update"]}
+        rec = opt.history[-1]
+        log(f"path E run round: search type {rec['search_type']}, ladder r "
+            f"{rec['r']}, res shell {rec['res_shell']}, launches "
+            f"{per['sym_path_run_round']}; final round {final['wall']:.2f} s,"
+            f" launches {per['sym_path_final']}; stage seconds "
+            + json.dumps({k: round(v, 4) for k, v in opt.final_timing.items()}))
+        expect_launches("path E run round", per["sym_path_run_round"],
+                        rec["search_type"] == SEARCH_TYPE_GLOBAL, 4)
+        check_poses(opt, q_true, rec, "path E run round", True, SYM_GROUP)
+        expect_launches("path E final round", per["sym_path_final"], False, 4)
+        check_maps(opt, opt.n)
+        joined = opt.joined_maps[0]
+        fsc = spectrum.frc_fsc(
+            fft_ops.fft3_center(joined),
+            fft_ops.fft3_center(torch.as_tensor(vol, device=dev)),
+            opt.n // 2, 3).cpu().numpy()
+        res = spectrum.res_p(torch.as_tensor(opt.fsc[0]), 0.143, r_low=1)
+        low = fsc[1:FINAL_FSC_SHELLS + 1]
+        corr = map_corr(joined, sym_average(joined, opt.sym.rot))
+        readings.update(
+            final_s=final["wall"], final_stage_s=opt.final_timing,
+            symmetrize_halves_s_by_mc={str(k): v for k, v in
+                                       sym_t.seconds.items()},
+            joined_fsc_min=float(low.min()), final_res_shell=int(res),
+            joined_self_average_corr=corr,
+            final_mc=opt.insert_mc(opt.max_r))
+        log("path E readings: " + json.dumps(readings))
+        log(f"path E joined map against the phantom: FSC min over shells 1 "
+            f".. {FINAL_FSC_SHELLS} {low.min():.4f} (first shell under 0.5: "
+            f"{int(np.argmax(fsc[1:] < 0.5)) + 1}); final FSC-0.143 shell "
+            f"{res}; correlation with its own {SYM_GROUP}-average {corr:.6f}")
+        if not (np.isfinite(joined.cpu().numpy()).all() and low.min() > 0.5):
+            raise AssertionError("path E: joined map's FSC against the "
+                                 f"phantom {low}")
+        if res < ROUND_RES_MIN:
+            raise AssertionError(f"path E: final FSC shell {res} < "
+                                 f"{ROUND_RES_MIN}")
+        if not corr > SYM_AVG_CORR_MIN:
+            raise AssertionError(f"path E: joined map's correlation with "
+                                 f"its {SYM_GROUP}-average {corr}")
+        if not bands <= set(sym_t.seconds):
+            raise AssertionError(f"path E: bands {sorted(bands)} not all "
+                                 f"symmetrised: {sorted(sym_t.seconds)}")
+        del opt
+        return per
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def sym_study(dev, designs=SYM_STUDY_DESIGNS):
+    """--sym-study: path E's global round and a local round pinned at
+    r = 40 on each phantom design of ``designs`` (``sym_phantom``), no
+    bounds: the median pose error (nearest of the group's mates) and the
+    resolution shell of each round. It shows which designs carry the
+    orientation at the global round's band (r = 8)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    out = []
+    for design in designs:
+        out_dir = tempfile.mkdtemp(prefix="thunder_smoke_sym_")
+        try:
+            opt, _, q_true = sym_optimiser(dev, out_dir, design=design)
+            row = {"design": design}
+            for label in ("global", "local"):
+                if label == "local":
+                    pin_local(opt)
+                rec, wall, _, _ = drive_round(opt, f"sym study {label}")
+                ang = pose_error(opt, q_true, SYM_GROUP)
+                row[label] = dict(median_deg=float(np.median(ang)),
+                                  under5=float(np.mean(ang < 5)),
+                                  shell=rec["res_shell"], s=wall)
+            log("sym study: " + json.dumps(row))
+            out.append(row)
+            del opt
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------ path F: the MKB insert
+
+class MkbExact:
+    """Wraps ``engine.add_rows`` (the MKB insert's row adds) while a round
+    runs: half 0's table (the first table added to) is kept, and every
+    row set added to it is also added in float64 to a table of its own
+    shape: the exact sum of the same f32 rows."""
+
+    def __init__(self):
+        from thunder_tpu_torch.parallel import engine
+
+        self.engine = engine
+        self.real = engine.add_rows
+        self.tab = self.t64 = None
+        self.calls = 0
+
+    def __call__(self, tab, idx, rows):
+        self.real(tab, idx, rows)
+        if self.tab is None:
+            import torch
+
+            self.tab = tab
+            self.t64 = torch.zeros(tab.shape, dtype=torch.float64,
+                                   device=tab.device)
+        if tab is self.tab:
+            self.t64.index_add_(0, idx, rows.double())
+            self.calls += 1
+
+    def __enter__(self):
+        self.engine.add_rows = self
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.add_rows = self.real
+
+    def check(self, label):
+        """Half 0's table, the rows the fold reads (the last row, out of
+        band, is dropped), against the float64 sum at MKB_TOL of its
+        peak."""
+        import torch
+
+        mc = round((self.tab.shape[0] - 1) ** (1 / 3))
+        a, b = self.tab[:-1], self.t64[:-1]
+        err = float(torch.amax(torch.abs(a.double() - b))
+                    / torch.amax(torch.abs(b)))
+        out = dict(mc=mc, rows=int(a.shape[0]), row_sets=self.calls,
+                   max_rel_err=err)
+        log(f"{label}: MKB half-0 table against its exact f64 sum: "
+            + json.dumps(out))
+        self.tab = self.t64 = None
+        if not err < MKB_TOL:
+            raise AssertionError(f"{label}: MKB table off its exact sum "
+                                 f"{out}")
+        return out
+
+
+def timed_insert(opt):
+    """``Optimiser.reconstruct`` at the ladder's band with
+    ``engine.insert_fold_reduce`` timed (synchronised): (its seconds, the
+    reference maps)."""
+    from thunder_tpu_torch.parallel import engine
+
+    real, secs = engine.insert_fold_reduce, []
+
+    def timed(*args, **kw):
+        opt._sync()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        opt._sync()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    engine.insert_fold_reduce = timed
+    try:
+        opt.reconstruct()
+    finally:
+        engine.insert_fold_reduce = real
+    return sum(secs), opt.refs
+
+
+def mkb_vs_trilinear(opt, label):
+    """From the optimiser's present state, one reconstruction with the MKB
+    insert and one with the trilinear insert, on the same insert draws;
+    the state is restored after each. Holds their correlation above
+    MKB_TRI_CORR_MIN (the JAX package's bar). Returns the readings."""
+    import dataclasses
+
+    para = opt.para
+    saved = {k: getattr(opt, k, None) for k in (
+        "refs", "fsc", "_w_warm", "insert_offsets", "half_maps",
+        "reco_timing")}
+    gen = opt.draws.gen.get_state()
+    maps, secs = {}, {}
+    try:
+        for mkb in (True, False):
+            opt.draws.gen.set_state(gen)
+            for k, v in saved.items():
+                setattr(opt, k, v)
+            opt.para = dataclasses.replace(para, mkb_kernel=mkb)
+            secs[mkb], maps[mkb] = timed_insert(opt)
+    finally:
+        opt.para = para
+        opt.draws.gen.set_state(gen)
+        for k, v in saved.items():
+            setattr(opt, k, v)
+    corr = map_corr(maps[True], maps[False])
+    out = dict(mc=opt.insert_mc(), corr=corr, mkb_insert_s=secs[True],
+               trilinear_insert_s=secs[False])
+    log(f"{label}: MKB vs trilinear reference from one state: "
+        + json.dumps(out))
+    if not corr > MKB_TRI_CORR_MIN:
+        raise AssertionError(f"{label}: MKB reference's correlation with "
+                             f"the trilinear one {corr}")
+    return out
+
+
+def run_mkb_path(dev, n=160, b=N_PARTICLES):
+    """Path F: the K = 1 refinement data of phase 5 with ``mkb_kernel``:
+    a global round and a local round pinned at r = 40, each held to K1
+    (global round only) and to K2 launched 0 times (the MKB insert adds
+    rows with ``index_add_``, as the JAX package's XLA scatter), to the
+    pose and resolution bars, and half 0's MKB table against the exact f64
+    sum of its rows; between them the MKB and trilinear references from
+    the post-global state; after them the MKB insert timed at the local
+    band. Returns the launches per round."""
+    import dataclasses
+
+    opt, q_true = make_optimiser(
+        dev, n, b, para=dataclasses.replace(bench_para(n), mkb_kernel=True))
+    if opt._insert_kernel() != "mkb":
+        raise AssertionError("path F: the optimiser does not insert with "
+                             "the MKB kernel")
+    per, readings = {}, {}
+    for i, label in enumerate(("global", "local")):
+        if i:
+            pin_local(opt)
+        with MkbExact() as exact:
+            rec, wall, per[f"mkb_path_{label}"], _ = drive_round(
+                opt, f"path F {label} round")
+        readings[f"{label}_s"] = wall
+        expect_launches(f"path F {label} round", per[f"mkb_path_{label}"],
+                        not i, 0)
+        check_poses(opt, q_true, rec, f"path F {label} round", True)
+        check_maps(opt, opt.n)
+        readings[f"{label}_exact"] = exact.check(f"path F {label} round")
+        if not i:
+            readings["mkb_vs_trilinear"] = mkb_vs_trilinear(
+                opt, "path F after the global round")
+    readings["local_band_mkb_insert_s"], _ = timed_insert(opt)
+    readings["local_band_mc"] = opt.insert_mc()
+    log("path F readings: " + json.dumps(readings))
+    del opt
+    return per
+
+
 def main(argv):
     import torch
 
@@ -2734,6 +3291,15 @@ def main(argv):
     if "--cli-study" in argv:
         cli_study(dev)
         return 0
+    if "--sym" in argv:
+        log(f"path E launches: {json.dumps(run_sym_path(dev))}")
+        return 0
+    if "--sym-study" in argv:
+        sym_study(dev)
+        return 0
+    if "--mkb" in argv:
+        log(f"path F launches: {json.dumps(run_mkb_path(dev))}")
+        return 0
     k1 = check_k1(dev)
     k1_cls = check_k1_classes(dev)
     # the global round's insert call: 64 images x 100 draws x 2048 ring
@@ -2758,6 +3324,8 @@ def main(argv):
         per_path.update(run_class2d(dev))
         per_path.update(run_ctf_path(dev, k2))
         per_path.update(run_cli_path(dev, card))
+        per_path.update(run_sym_path(dev))
+        per_path.update(run_mkb_path(dev))
         launches = {name: sum(p[name] for p in per_path.values())
                     for name in ("global_scan", "insert_update")}
     if "--data-study" in argv:

@@ -42,6 +42,15 @@ profiler, then the final round (``finalise``: the Nyquist band, mc = 317)
 once unprofiled and once under the profiler, cold (no C-balance warm
 start, as in a run). Its files go to a temporary directory that is
 removed at the end.
+
+    python3 profile_torch.py --sym I [TRACE.json.gz]
+
+profiles ``chip_smoke.py``'s path E (bench.py's Para under the point
+group given, I in the smoke, on 256 images of a phantom with that group):
+a global round and a local round pinned at r = 40 unprofiled, then a
+second pinned local round under the profiler, with the seconds of its
+symmetrisation (``engine.symmetrize_halves``: 2 halves x the group's
+general rotations at mc = 293) beside the round's reconstruction stages.
 """
 
 import json
@@ -301,6 +310,46 @@ def main_ctf(argv):
     return 0
 
 
+def main_sym(argv):
+    """--sym GROUP: chip_smoke's path E, its local round profiled."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+
+    sym = argv[0] if argv else cs.SYM_GROUP
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="thunder_profile_")
+    try:
+        opt = cs.sym_optimiser(dev, out_dir, sym=sym)[0]
+        walls = {"global": timed_round(opt)}
+        cs.pin_local(opt)
+        walls["local_warm_up"] = timed_round(opt)
+        for name, (wall, peak) in walls.items():
+            print(f"{name} round: {wall:.3f} s, peak device memory "
+                  f"{peak:.3f} GiB", flush=True)
+        trace = argv[1] if len(argv) > 1 else None
+        out = {"card": card, "sym": sym, "unprofiled_s_peak_gib": walls,
+               "mc": opt.insert_mc(cs.R_LOCAL + round(opt.max_r / 3))}
+        cs.pin_local(opt)
+        with cs.SymTimer(opt) as sym_t:
+            out["local"] = profiled_round(opt, trace)
+        secs = sum(sum(v) for v in sym_t.seconds.values())
+        stages = out["local"]["stage_s"]
+        out["symmetrize_halves_s"] = secs
+        out["symmetrize_share_of"] = {
+            k: secs / stages[k] for k in ("reco_insert", "reconstruction")}
+        print(json.dumps(out, indent=1), flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"card: {card}", flush=True)
+    return 0
+
+
 def main(argv):
     import torch
 
@@ -313,6 +362,8 @@ def main(argv):
         return main_classes([a for a in argv if a != "--classes"])
     if "--ctf" in argv:
         return main_ctf([a for a in argv if a != "--ctf"])
+    if "--sym" in argv:
+        return main_sym([a for a in argv if a != "--sym"])
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(f"card: {card}", flush=True)

@@ -217,10 +217,13 @@ def test_run_writes_round_and_final_sets(final, tmp_path):
 
 @pytest.mark.parametrize("final", [1], indirect=True, ids=["k1"])
 def test_unported_final_options_raise(final, tmp_path):
-    """The MKB insert is still refused. A provided mask and a subtraction
-    run now run: ``set_mask`` keeps the volume, and ``run`` ends in the
+    """Options once refused now run. A provided mask and a subtraction
+    run: ``set_mask`` keeps the volume, and ``run`` ends in the
     subtracted stack (one image per particle under C1) and its table
-    (parity in tests/test_torch_subtract.py)."""
+    (parity in tests/test_torch_subtract.py). The MKB insert: an
+    optimiser with ``mkb_kernel`` is built and inserts with the MKB
+    kernel in 3D, trilinearly in 2D, as the JAX package's
+    (its rounds: tests/test_torch_mkb.py)."""
     para = dataclasses.replace(final["para"], subtract=True,
                                save_ref_each_iter=False,
                                save_thu_each_iter=False)
@@ -232,6 +235,7 @@ def test_unported_final_options_raise(final, tmp_path):
     stack = tio.read_mrc(str(tmp_path / "Subtract_Rank_000000.mrcs"))
     assert stack.shape == (n_imgs, N, N) and np.isfinite(stack).all()
     assert len(tio.read_thu(str(tmp_path / "Meta_Subtract.thu"))) == n_imgs
-    with pytest.raises(NotImplementedError):
-        tom.Optimiser(dataclasses.replace(final["para"], mkb_kernel=True),
-                      device="cpu")
+    mkb = dataclasses.replace(final["para"], mkb_kernel=True)
+    assert tom.Optimiser(mkb, device="cpu")._insert_kernel() == "mkb"
+    assert tom.Optimiser(dataclasses.replace(mkb, mode="2d"),
+                         device="cpu")._insert_kernel() == "trilinear"

@@ -170,7 +170,7 @@ def cmd_reconstruct(args):
             quat.rotate3d(_tensor(q[sl], dev)), col, row,
             torch.ones(sl.stop - sl.start, device=dev), pf=args.pf,
             pixel_mask=pmask)
-    vol = reconstructor.reconstruct_cropped(
+    vol = reconstructor.reconstruct(
         state["F"], state["T"], torch.ones(n // 2, device=dev), n,
         pf=args.pf, max_radius=n // 2 - 2)
     write_mrc(args.output, _host(vol), voxel_size=args.pixel_size)

@@ -13,11 +13,14 @@ hemisphere A, plane 1 = B, S slots per plane (invalid slots carry
 - M-step: ``_residual_stats``, then on local rounds ``norm_correction``
   and ``engine.sigma_rescaled``, and ``maximization_sigma``; the group
   intensity-scale correction (``correct_scale``) on later global rounds,
-- ``reconstruct``: engine.insert_fold_reduce (kernel K2 in 3D; the K
-  classes fused into one accumulator, or inserted one at a time past
-  FUSED_CLASS_BYTES), then per class grid-exact symmetrisation, per-half
-  Wiener/C-balance, golden-standard FSC with the random-phase core
-  correction, hemisphere averaging; after a global round ``balance_class``,
+- ``reconstruct``: engine.insert_fold_reduce (kernel K2 in 3D, or the
+  MKB blob kernel's row adds with ``para.mkb_kernel``; the K classes fused
+  into one accumulator, or inserted one at a time past
+  FUSED_CLASS_BYTES), then per class point-group symmetrisation
+  (grid-exact rotations as transposes, the others by trilinear gathers),
+  per-half Wiener/C-balance, golden-standard FSC with the random-phase
+  core correction, hemisphere averaging; after a global round
+  ``balance_class``,
 - on local 3D rounds ``re_centre_img`` and ``re_mask_img``; reference
   auto-recentring, solvent flattening (the spherical mask), the frequency
   ladder (on the best class's resolution) and the search-type switch.
@@ -38,8 +41,6 @@ in solvent flattening when ``use_mask`` asks for it and in the golden FSC
 under ``mask_fsc``. With ``para.subtract`` the final round ends in the
 signal-subtraction pipeline (``_subtract_pipeline``: the subtracted stack
 Subtract_Rank_000000.mrcs and Meta_Subtract.thu).
-
-Not ported yet, and raising ``NotImplementedError``: the MKB insert.
 """
 
 import dataclasses
@@ -213,11 +214,6 @@ class LadderState:
         return min(self.r + int(round(self.max_r / 3)), self.max_r)
 
 
-def _not_ported(what):
-    return NotImplementedError(f"thunder_tpu_torch.core.optimiser: {what} "
-                               "is not ported yet")
-
-
 class Optimiser:
     """Single-device optimiser. ``device`` defaults to CUDA; ``draws``
     defaults to a ``Draws`` generator seeded with ``para.seed``."""
@@ -225,8 +221,6 @@ class Optimiser:
     DEFAULT_IMAGE_BATCH = 64
 
     def __init__(self, para: Para, device=None, draws=None):
-        if para.mkb_kernel:
-            raise _not_ported("the MKB insert kernel")
         # the kernels are picked by the tensors' device; no other choice
         # of the JAX package's backends exists here
         if para.fused_kernels != "auto":
@@ -890,6 +884,14 @@ class Optimiser:
             ifftc(torch.where(low, mean_ft, ft_a)).real,
             ifftc(torch.where(low, mean_ft, ft_b)).real])
 
+    def _insert_kernel(self):
+        """The gridding insert's kernel: trilinear (the reference's
+        shipped choice, include/Config.h:97) or, with ``para.mkb_kernel``,
+        the MKB blob (RECONSTRUCTOR_MKB_KERNEL, include/Config.h:95); the
+        MKB branch is a 3D insert path only."""
+        return ("mkb" if self.para.mkb_kernel and self.dims == 3
+                else "trilinear")
+
     def insert_mc(self, r_u=None):
         """Crop size of the insert accumulator for band ``r_u`` (default the
         ladder's r_u): the table band is r_u bucketed to multiples of 8
@@ -899,7 +901,7 @@ class Optimiser:
         return brick_ops.crop_size(r_tab, self.para.pf)
 
     def reconstruct(self, r_u=None, avg=True, final=False):
-        """Gridding insert + fold, then per class grid-exact
+        """Gridding insert + fold, then per class point-group
         symmetrisation, per-half Wiener/C-balance, golden-standard FSC and
         hemisphere averaging (Model::compareTwoHemispheres,
         src/Model.cpp:307-850). With K > 1 classes one insert pass fills a
@@ -943,11 +945,14 @@ class Optimiser:
             reco_t[name] += now - t_last
             t_last = now
 
+        kernel = self._insert_kernel()
+
         def insert(k_classes, st, w):
             return engine.insert_fold_reduce(
                 col, row, pmask, dat, c, st, ri, ti, w, self.offsets,
                 pf=para.pf, n=self.n, mc=mc, chunk=self._chunk(),
-                k_classes=k_classes, mode=para.mode)
+                k_classes=k_classes, mode=para.mode, insert_kernel=kernel,
+                blob_a=para.a, alpha=para.alpha)
 
         width = 12 if dims == 2 else 24
         self.insert_fused = (k_cls > 1 and k_cls * mc ** dims * width * 4
@@ -980,7 +985,7 @@ class Optimiser:
             vols2, self._w_warm[k] = engine.reconstruct_halves(
                 f_ht, t_ht, fsc_k, wc if warm else torch.zeros_like(t_ht),
                 float(r_u), pf=para.pf, n=self.n, warm=warm, blob_a=para.a,
-                blob_alpha=para.alpha, dims=dims)
+                blob_alpha=para.alpha, dims=dims, insert_kernel=kernel)
             ft_a, ft_b = fftc(vols2[0]), fftc(vols2[1])
             fsc_new = self._golden_fsc(ft_a, ft_b)
             fscs.append(fsc_new.cpu().numpy())
@@ -989,7 +994,7 @@ class Optimiser:
                 joined.append(reconstructor.reconstruct_cropped(
                     f_ht.sum(0), t_ht.sum(0), fsc_new, self.n, pf=para.pf,
                     max_radius=r_u, join_half=True, blob_a=para.a,
-                    blob_alpha=para.alpha, dims=dims))
+                    blob_alpha=para.alpha, dims=dims, insert_kernel=kernel))
             _mark("wiener_fsc")
             if avg:
                 band = spectrum.res_p(fsc_new, 0.95, r_low=1)

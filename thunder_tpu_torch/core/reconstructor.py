@@ -1,31 +1,42 @@
-"""Reconstruction from the folded insert: grid-exact symmetrisation and
-Wiener-FSC / C-balance inversion (port of the cropped-grid path of
-``thunder_tpu.core.reconstructor``; src/Reconstructor.cpp).
+"""Reconstruction from the folded insert: point-group symmetrisation and
+Wiener-FSC / C-balance inversion (port of ``thunder_tpu.core.
+reconstructor``; src/Reconstructor.cpp).
 
 Contract (the reference's active config, include/Config.h:95-117):
 normalise F and T by T's DC; Wiener MAP T /= clamp(FSC, 1e-3, 1-1e-3) for
 shells in [5 pf, maxR pf); C-balance W <- W / |FT(IFT(T W) taper)| until
 max||C|-1| < 1e-2 or no decrease (<= 30 iterations); F *= W; zero-embed
 into the padded grid, inverse FFT, extract the n-box, divide by the
-trilinear grid-correction profile. ``dims = 2`` runs the same contract on
-2D class averages (2D classification).
+grid-correction profile of the insert kernel (``insert_kernel``:
+"trilinear" -> sinc^2, "mkb" -> the MKB blob's). ``dims = 2`` runs the
+same contract on 2D class averages (2D classification).
+
+Symmetrisation F(k) <- sum_g F(g k) over the point group
+(SYMMETRIZE_FT, src/Reconstructor.cpp:2676-2692): grid-exact rotations as
+transposes and flips (``symmetrize_exact``), the others by trilinear
+gathers from a ``brick.pack_real3`` table of [F.re, F.im, T]
+(``symmetrize_cropped``), or on the full padded grid (``symmetrize``).
+
+The brick-state API (``empty_brick_state``, ``insert_brick_3d`` /
+``insert_brick_2d``, ``finalize_brick``) inserts batches of pose-weighted
+pixels into a row-major band-cropped accumulator and folds it.
 
 The full-grid path of the tools (``thunder_tpu_torch.cli``'s
 ``reconstruct`` and the like): ``empty_state`` holds padded (F, T)
 accumulators and the re-centring offsets, ``insert_pixels_3d`` scatters
 pose-weighted ring pixels and their Hermitian mirrors into them with
-``ops.interp.linear_scatter_add``, and ``reconstruct_cropped`` inverts
-them as they are: its crop mc is then the padded grid pf n (the JAX
-package's full-grid ``reconstruct``).
+``ops.interp.linear_scatter_add``, ``symmetrize`` symmetrises them and
+``reconstruct`` inverts them: ``reconstruct_cropped`` with the padded grid
+pf n as its crop.
 """
 
 import numpy as np
 import torch
 
-from ..dtypes import complex_dtype, real_dtype
+from ..dtypes import complex_dtype, real_dtype, resolve_device
 from ..ops import brick
 from ..ops.fft import fft2_center, fft3_center, ifft2_center, ifft3_center
-from ..ops.interp import linear_scatter_add
+from ..ops.interp import linear_gather, linear_scatter_add
 from ..ops.kernels import mkb_rl, tik_rl
 
 # include/Reconstructor.h:61-75
@@ -98,14 +109,85 @@ def symmetrize_exact(f, t, exact_ops, max_radius, pf=2):
     return f_acc, t_acc
 
 
+def _sym_coords(mc, device):
+    """Centered (x, y, z) coordinates (mc, mc, mc, 3) of the voxels of an
+    (mc,)^3 grid in (z, y, x) array order, and their squared radius."""
+    idx = torch.arange(mc, dtype=torch.float32, device=device) - mc // 2
+    zz, yy, xx = torch.meshgrid(idx, idx, idx, indexing="ij")
+    return torch.stack([xx, yy, zz], -1), xx ** 2 + yy ** 2 + zz ** 2
+
+
+def symmetrize(state, sym_rots, max_radius, pf=2):
+    """F(k) <- sum_g F(g k), T likewise, over the point group with the
+    identity, on the full padded grid of ``empty_state`` with trilinear
+    gathers (SYMMETRIZE_FT, LINEAR_INTERP), inside |k| < max_radius pf + 1.
+    sym_rots: (G, 3, 3) WITHOUT the identity; no-op when G = 0."""
+    if len(sym_rots) == 0:
+        return state
+    f, t = state["F"], state["T"]
+    coords, r2 = _sym_coords(f.shape[-1], f.device)
+    mask = r2 < float(max_radius * pf + 1) ** 2
+    f_acc, t_acc = f, t
+    for rot in torch.as_tensor(sym_rots, dtype=torch.float32,
+                               device=f.device):
+        rc = torch.flip(coords @ rot.T, dims=(-1,))
+        f_acc = f_acc + torch.where(mask, linear_gather(f, rc),
+                                    torch.zeros((), dtype=f.dtype,
+                                                device=f.device))
+        t_acc = t_acc + torch.where(mask, linear_gather(t, rc),
+                                    torch.zeros((), device=t.device))
+    return {**state, "F": f_acc, "T": t_acc}
+
+
+def symmetrize_cropped(f, t, sym_rots, max_radius, pf=2, z_chunk=64):
+    """F(k) <- sum_g F(g k), T likewise, on the band-cropped grid
+    (SYMMETRIZE_FT): every rotation g of sym_rots (G, 3, 3) (WITHOUT the
+    identity) gathers [F.re, F.im, T] trilinearly from one
+    ``brick.pack_real3`` table at each voxel inside |k| < max_radius pf + 1
+    (the others gain nothing). The grid is walked in slabs of ``z_chunk``
+    z-planes, and only a slab's in-band voxels are gathered, which bounds
+    the (voxels, 24) row temporaries; the result does not depend on
+    ``z_chunk``. Returns (F, T)."""
+    if len(sym_rots) == 0:
+        return f, t
+    mc = f.shape[-1]
+    dev = f.device
+    tab = brick.pack_real3(f.real, f.imag, t)
+    coords, r2 = _sym_coords(mc, dev)
+    inside = (r2 < float(max_radius * pf + 1) ** 2).reshape(-1)
+    sel = torch.nonzero(inside)[:, 0]                # z-major voxel order
+    coords = coords.reshape(-1, 3)
+    starts = torch.arange(0, mc, z_chunk, device=dev) * (mc * mc)
+    bounds = torch.searchsorted(sel, starts).tolist() + [sel.numel()]
+    rots = torch.as_tensor(sym_rots, dtype=torch.float32, device=dev)
+    acc = torch.zeros((sel.numel(), 3), dtype=torch.float32, device=dev)
+    for b0, b1 in zip(bounds[:-1], bounds[1:]):
+        if b1 == b0:
+            continue
+        xyz = coords[sel[b0:b1]]
+        for rot in rots:
+            acc[b0:b1] += brick.gather_real3(
+                tab, torch.flip(xyz @ rot.T, dims=(-1,)))
+    del tab
+    f_acc = f.clone().reshape(-1)
+    t_acc = t.clone().reshape(-1)
+    f_acc[sel] += torch.complex(acc[:, 0], acc[:, 1])
+    t_acc[sel] += acc[:, 2]
+    return f_acc.reshape(f.shape), t_acc.reshape(t.shape)
+
+
 def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
                         grid_corr=True, map_wiener=True, join_half=False,
                         blob_a=DEFAULT_BLOB_A, blob_alpha=DEFAULT_BLOB_ALPHA,
-                        w_init=None, return_w=False, dims=3):
+                        w_init=None, return_w=False, dims=3,
+                        insert_kernel="trilinear"):
     """Band-cropped (F, T) (mc,)*dims + per-shell FSC -> real n-box map (or
     image for ``dims = 2``), and the converged C-balance weights when
-    ``return_w``. Trilinear (bilinear) insert only. ``w_init`` warm-starts
-    the C-balance iteration."""
+    ``return_w``. ``w_init`` warm-starts the C-balance iteration.
+    ``insert_kernel`` names the kernel the insert used: "trilinear"
+    (bilinear in 2D) or "mkb", whose C-balance taper has radius
+    ``blob_a`` (not ``blob_a * pf``) and whose grid correction divides by
+    the blob's own real-space profile instead of sinc^2."""
     if max_radius is None:
         max_radius = size // 2 - 2
     max_radius = float(max_radius)
@@ -143,7 +225,10 @@ def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
         w = torch.where(in_rad, torch.where(w_init > 0.0, w_init, one), zero)
 
     if grid_corr:
-        taper_a = blob_a * pf
+        # the reference's _kernelRL is MKB_RL with a, not pf a
+        # (RECONSTRUCTOR_KERNEL_PADDING off, src/Reconstructor.cpp:77-88);
+        # for the MKB insert this also matches the deposited MKB_FT(a)
+        taper_a = blob_a if insert_kernel == "mkb" else blob_a * pf
         taper_r = torch.sqrt(_radius_sq_grid(mc, dims, dev)) / mc
         nf = mkb_rl(torch.zeros((), device=dev), taper_a, blob_alpha)
         taper = (mkb_rl(taper_r, taper_a, blob_alpha) / nf).to(real_dtype)
@@ -176,8 +261,28 @@ def reconstruct_cropped(f, t, fsc, size, pf=2, max_radius=None,
     lo = m // 2 - size // 2
     out = pad_rl[(slice(lo, lo + size),) * dims]
     r_rl = torch.sqrt(_radius_sq_grid(size, dims, dev)) / (pf * size)
-    out = out / tik_rl(r_rl)
+    if insert_kernel == "mkb":
+        # MKB_FT(d) was deposited with d in padded voxels and radius
+        # blob_a (brick.mkb_rows3): the envelope at r_rl = x / (pf n) is
+        # mkb_rl(r_rl, blob_a), normalised to 1 at the centre
+        nf0 = mkb_rl(torch.zeros((), device=dev), blob_a, blob_alpha)
+        out = out / (mkb_rl(r_rl, blob_a, blob_alpha) / nf0)
+    else:
+        out = out / tik_rl(r_rl)
     return (out, w) if return_w else out
+
+
+def reconstruct(f, t, fsc, size, pf=2, max_radius=None, grid_corr=True,
+                map_wiener=True, join_half=False, blob_a=DEFAULT_BLOB_A,
+                blob_alpha=DEFAULT_BLOB_ALPHA, dims=3):
+    """Full reconstruction from the padded (pf size,)*dims accumulators of
+    ``empty_state`` (trilinear insert): ``reconstruct_cropped`` with the
+    whole padded grid as its crop, which makes the zero-embedding the
+    identity."""
+    return reconstruct_cropped(
+        f, t, fsc, size, pf=pf, max_radius=max_radius, grid_corr=grid_corr,
+        map_wiener=map_wiener, join_half=join_half, blob_a=blob_a,
+        blob_alpha=blob_alpha, dims=dims)
 
 
 def empty_state(size, pf=2, device=None):
@@ -220,3 +325,54 @@ def insert_offsets(state, tx, ty, w):
             "oy": state["oy"] + torch.sum(ty * w),
             "counter": state["counter"] + torch.sum(w)}
 
+
+# ------------------------------------------------------ brick insert path
+
+def empty_brick_state(size, r_max, pf=2, mode="3d", device=None):
+    """A zeroed band-cropped brick accumulator for insertion band r_max
+    ((mc^d + 1, 3 * 2^d) rows, the last the drop row) and the offset
+    sums ox, oy, counter, on ``device`` (default the CUDA device)."""
+    device = resolve_device(device)
+    mc = brick.crop_size(r_max, pf)
+    tab = (brick.empty_insert3(mc, device) if mode == "3d"
+           else brick.empty_insert2(mc, device))
+    zero = lambda: torch.zeros((), dtype=real_dtype, device=device)
+    return {"tab": tab, "ox": zero(), "oy": zero(), "counter": zero()}
+
+
+def _brick_values(values, ctf, w, pixel_mask):
+    wv = w[:, None].to(real_dtype)
+    if pixel_mask is not None:
+        wv = wv * pixel_mask[None, :]
+    return values * ctf * wv, ctf ** 2 * wv
+
+
+def insert_brick_3d(state, values, ctf, rot, col, row, w, pf=2,
+                    pixel_mask=None):
+    """Add one batch of pose-weighted ring pixels to the brick state: one
+    width-24 row per (image, pixel); the Hermitian mirror is deferred to
+    ``finalize_brick``. values (B, P) complex, ctf (B, P), rot (B, 3, 3),
+    col/row (P,), w (B,). The table is added to in place."""
+    from .projector import slice_coords_3d
+
+    fv, tv = _brick_values(values, ctf, w, pixel_mask)
+    coords = slice_coords_3d(rot, col, row, pf=pf)
+    return {**state, "tab": brick.insert3(state["tab"], coords, fv, tv)}
+
+
+def insert_brick_2d(state, values, ctf, rot, col, row, w, pf=2,
+                    pixel_mask=None):
+    """The 2D gridding insert (insertI2D): rot (B, 2, 2) in-plane
+    rotations, otherwise as ``insert_brick_3d``."""
+    from .projector import slice_coords_2d
+
+    fv, tv = _brick_values(values, ctf, w, pixel_mask)
+    coords = slice_coords_2d(rot, col, row, pf=pf)
+    return {**state, "tab": brick.insert2(state["tab"], coords, fv, tv)}
+
+
+def finalize_brick(state, mode="3d"):
+    """Fold the bricks to voxels with the deferred Hermitian mirror:
+    cropped (F complex, T real)."""
+    fold = brick.fold_insert3 if mode == "3d" else brick.fold_insert2
+    return fold(state["tab"])

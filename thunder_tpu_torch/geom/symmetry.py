@@ -114,6 +114,18 @@ class Symmetry:
         """|G| - 1, the reference's nSymmetryElement()."""
         return len(self.rot)
 
+    def is_asymmetric(self):
+        return self.n_elements == 0
+
+    def rot_with_identity(self):
+        """(|G|, 3, 3) matrices, the identity first."""
+        return np.concatenate([np.eye(3)[None], self.rot], axis=0)
+
+    def quat_with_identity(self):
+        """(|G|, 4) quaternions, the identity first."""
+        return np.concatenate([np.array([[1.0, 0.0, 0.0, 0.0]]), self.quat],
+                              axis=0)
+
 
 def symmetry_counterpart(q, sym_quats, anchor=None):
     """Among {conj(g) q : g in G u {e}} pick the candidate maximising

@@ -1,9 +1,14 @@
 """Gridding-kernel profiles (port of ``thunder_tpu.ops.kernels``;
 src/Functions/Functions.cpp with FUNCTIONS_MKB_ORDER_0):
 
-- ``mkb_rl(r, a, alpha)``: 3D inverse FT of the order-0 MKB blob, the
-  C-balance taper of the reconstruction;
-- ``tik_rl(r)`` = sinc^2, the trilinear grid-correction profile.
+- ``mkb_ft(r, a, alpha)`` = I0(alpha sqrt(1 - (r/a)^2)) / I0(alpha) for
+  r <= a, 0 beyond: the blob profile the MKB insert deposits
+  (Functions.cpp:105-143);
+- ``mkb_rl(r, a, alpha)``: its 3D inverse FT, the C-balance taper of the
+  reconstruction and the MKB insert's grid correction;
+- ``mkb_blob_vol(a, alpha)``: the blob's volume (Functions.cpp:218-233);
+- ``tik_rl(r)`` = sinc^2, the trilinear grid-correction profile;
+  ``nik_rl(r)`` = sinc, the nearest-neighbour one.
 """
 
 import math
@@ -11,6 +16,15 @@ import math
 import torch
 
 from ..geom.directional import bessel_i0
+
+
+def mkb_ft(r, a, alpha):
+    """MKB blob profile (order 0) at distances ``r`` (tensor); 0 past a."""
+    u2 = torch.clamp((r / a) ** 2, min=0.0)
+    alpha_t = torch.as_tensor(alpha, dtype=torch.float32, device=r.device)
+    val = bessel_i0(alpha * torch.sqrt(torch.clamp(1 - u2, min=0.0))) \
+        / bessel_i0(alpha_t)
+    return torch.where(u2 > 1, torch.zeros_like(val), val)
 
 
 def _bessel_i_3_2(v):
@@ -43,3 +57,16 @@ def _sinc(x):
 def tik_rl(r):
     """sinc^2 grid correction of trilinear interpolation."""
     return _sinc(math.pi * r) ** 2
+
+
+def nik_rl(r):
+    """sinc grid correction of nearest-neighbour interpolation."""
+    return _sinc(math.pi * r)
+
+
+def mkb_blob_vol(a, alpha):
+    """Volume of the 3D MKB blob (order 0): (2 pi / alpha)^{3/2} a^3
+    I_{3/2}(alpha) / I0(alpha), a float32 scalar tensor."""
+    alpha_t = torch.as_tensor(alpha, dtype=torch.float32)
+    return ((2 * math.pi / alpha_t) ** 1.5 * a ** 3
+            * _bessel_i_3_2(alpha_t) / bessel_i0(alpha_t))

@@ -5,9 +5,10 @@ The JAX engine runs each stage as a ``shard_map`` over a (half, data)
 mesh. On one GPU the half axis is a leading dimension of size 2 of every
 per-image tensor — (2, S, ...), plane 0 = hemisphere A, plane 1 = B — and
 the data-axis ``psum`` disappears. Brick tables arrive as one (2, K, hz,
-mc, mc, C) stack of Hermitian half-space tables (3D) or (2, K, mc, mc, C)
-bilinear tables (2D classification); an image's class and half select its
-table inside one fused row gather.
+mc, mc, C) stack of Hermitian half-space tables or (2, K, mc, mc, mc, C)
+full-space tables (3D), or (2, K, mc, mc, C) bilinear tables (2D
+classification); an image's class and half select its table inside one
+fused row gather.
 
 Random draws are tensors passed in by the caller (the optimiser draws them
 from a ``torch.Generator``; the parity tests replay ``jax.random``):
@@ -22,8 +23,12 @@ drops out-of-band samples), and outputs carry a class axis. Each insert
 adds an image's DC draws to its class's centre row once, as their sum
 (``dc_draw_weights``): the same function as the JAX insert, in another add
 order that keeps K2's f32 table at its exact sum. The 2D insert (width-12
-rows, no Pallas kernel in the JAX package either) adds with ``index_add_``.
+rows) and the 3D MKB insert (8 width-24 rows a sample,
+``insert_kernel="mkb"``) have no Pallas kernel in the JAX package either:
+they add with ``index_add_`` (``add_rows``), as its XLA row scatter does.
 """
+
+import functools
 
 import torch
 
@@ -45,31 +50,32 @@ GATHER_BUDGET = 1 << 25
 
 
 def _flat_tables(bricks):
-    """(2, K, hz, mc, mc, C) half-space tables -> (flat (2 K n_vox, C),
-    mc, n_vox), n_vox = hz mc mc the rows of one table: hz = mc // 2 + 1
-    for the odd crop, mc // 2 where the band's crop is clipped to the even
-    padded box (a band near Nyquist). 2D tables (2, K, mc, mc, C) have
-    n_vox = mc mc."""
+    """(2, K, ...) tables -> (flat (2 K n_vox, C), mc, n_vox, half).
+    Half-space tables (2, K, hz, mc, mc, C): n_vox = hz mc mc the rows of
+    one table, hz = mc // 2 + 1 for the odd crop, mc // 2 where the band's
+    crop is clipped to the even padded box (a band near Nyquist).
+    Full-space tables (2, K, mc, mc, mc, C): n_vox = mc^3. 2D tables
+    (2, K, mc, mc, C): n_vox = mc mc."""
     mc = bricks.shape[-2]
+    flat = bricks.reshape(-1, bricks.shape[-1])
     if bricks.ndim == 5:
-        return bricks.reshape(-1, bricks.shape[-1]), mc, mc * mc
-    if bricks.shape[-4] == mc:
-        raise NotImplementedError(
-            "engine: full-space 3D brick tables are not ported (half=True)")
-    n_vox = bricks.shape[-4] * mc * mc
-    return bricks.reshape(-1, bricks.shape[-1]), mc, n_vox
+        return flat, mc, mc * mc, False
+    half = bricks.shape[-4] != mc
+    return flat, mc, bricks.shape[-4] * mc * mc, half
 
 
-def fused_class_gather(flat, coords, table, mc, n_vox):
+def fused_class_gather(flat, coords, table, mc, n_vox, half=True):
     """Gather each image's slices from ITS table (half and class folded
-    into ``table`` (B,)): with the conjugate-mirror fetch of the 3D
-    half-space layout for coords (B, ..., 3), bilinear for 2D coords
-    (B, ..., 2). Returns (B, ...) complex64."""
+    into ``table`` (B,)): 3D coords (B, ..., 3) from full-space tables, or
+    with the conjugate-mirror fetch from half-space ones (``half``), 2D
+    coords (B, ..., 2) bilinearly. Returns (B, ...) complex64."""
+    sgn = 1.0
     if coords.shape[-1] == 2:
         idx, w_c, valid = _corners2(coords, mc)
-        sgn = 1.0
-    else:
+    elif half:
         idx, w_c, valid, sgn = brick._corners3_half(coords, mc)
+    else:
+        idx, w_c, valid = brick._corners3(coords, mc)
     idx = torch.where(valid, idx, torch.zeros_like(idx)) + (
         table.long() * n_vox).reshape((-1,) + (1,) * (idx.ndim - 1))
     rows = flat[idx.reshape(-1)].reshape(idx.shape + (flat.shape[-1],))
@@ -143,7 +149,7 @@ def pack_ctf(cp):
     return torch.stack([cp[f].to(real_dtype) for f in CTF_FIELDS], dim=-1)
 
 
-def _phase_step(st, dat, ctf, sig_rcp, table, dr, flat, mc, n_vox, col, row,
+def _phase_step(st, dat, ctf, sig_rcp, table, dr, tabs, col, row,
                 pmask, sym_quats, factor, pf, n, mode, phase, ctf_search):
     """One phase for a batch of ACTIVE images (flattened batch axis):
     perturb -> fused-class projection -> block log-sum-exp -> posterior
@@ -172,7 +178,7 @@ def _phase_step(st, dat, ctf, sig_rcp, table, dr, flat, mc, n_vox, col, row,
             defocus_factor=st["d"])                          # (B, nD, P)
         u0_d = dr["u0_d"]
     coords = _slice_coords(_rot_mats(r, mode), col, row, pf)
-    proj = fused_class_gather(flat, coords, table, mc, n_vox)
+    proj = fused_class_gather(tabs[0], coords, table, *tabs[1:])
     tra = translation_phase(col, row, t[..., 0], t[..., 1], n)
     u_r, u_t, u_d = likelihood.local_search_weights(
         dat, ctf, sig_rcp, proj, tra, st["wR"], st["wT"],
@@ -209,7 +215,7 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
     evaluated per defocus point at ``pixel_size``, and d is resampled
     with u0_d (2, S).
     Returns (state, phases run per image (2, S))."""
-    flat, mc, n_vox = _flat_tables(bricks)
+    tabs = _flat_tables(bricks)
     k_cls = bricks.shape[1]
     two, s = dat.shape[:2]
     nb = two * s
@@ -238,7 +244,7 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
             new, shr = _phase_step(
                 {k: v[ix] for k, v in st.items()}, d_f[ix], c_f[ix],
                 s_f[ix], table[ix], {k: v[ix] for k, v in dr.items()},
-                flat, mc, n_vox, col, row, pmask, sym_quats, factor, pf, n,
+                tabs, col, row, pmask, sym_quats, factor, pf, n,
                 mode, phase,
                 None if cp_f is None else (cp_f[ix], factor_d, pixel_size))
             for k, v in new.items():
@@ -261,14 +267,19 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
 
 def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
                        tra_off, *, pf, n, mc, chunk, k_classes=1,
-                       mode="3d"):
+                       mode="3d", insert_kernel="trilinear", blob_a=1.9,
+                       alpha=15.0):
     """M-step gridding insert (Optimiser::reconstructRef draws mReco
     support points per image, src/Optimiser.cpp:6711+): for each half,
     every image's ``n_draw`` support draws ri/ti (2, S, n_draw) are inserted
     into its class's block of one class-fused accumulator, which is then
     folded to voxels (pixels in 2D) class by class with the deferred
-    Hermitian mirror. 3D inserts with kernel K2 into a channel-minor table
-    (``new_table``); symmetrisation is applied afterwards
+    Hermitian mirror. 3D trilinear inserts go through kernel K2 into a
+    channel-minor table (``new_table``); ``insert_kernel="mkb"`` (3D only)
+    adds the MKB blob's 8 rows a sample (radius ``blob_a`` padded voxels,
+    shape ``alpha``) into a row-major (K mc^3 + 1, 24) table with
+    ``index_add_`` (``_insert_chunk_mkb``), folded by
+    ``brick.fold_insert3``. Symmetrisation is applied afterwards
     (``symmetrize_halves``). 2D adds width-12 rows with ``index_add_``.
 
     dat_ori (2, S, P) UNMASKED pixels; ctf (2, S, P); state r/t/c;
@@ -278,15 +289,24 @@ def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
     axis (2, K, mc^d..) when ``k_classes`` > 1."""
     dev = dat_ori.device
     dims = 2 if mode == "2d" else 3
+    mkb = insert_kernel == "mkb" and dims == 3
     n_vox = mc ** dims
     s = dat_ori.shape[1]
     fs, ts, offs = [], [], []
     for h in range(2):
-        tab = (torch.zeros((k_classes * n_vox + 1, 12), dtype=torch.float32,
-                           device=dev) if mode == "2d"
-               else new_table(rows_pad(k_classes * n_vox + 1), device=dev))
+        if dims == 2 or mkb:
+            tab = torch.zeros((k_classes * n_vox + 1, 12 if dims == 2 else 24),
+                              dtype=torch.float32, device=dev)
+        else:
+            tab = new_table(rows_pad(k_classes * n_vox + 1), device=dev)
         off = torch.zeros((k_classes, 4), dtype=real_dtype, device=dev)
-        insert = _insert_chunk_2d if mode == "2d" else _insert_chunk
+        if dims == 2:
+            insert = _insert_chunk_2d
+        elif mkb:
+            insert = functools.partial(_insert_chunk_mkb, blob_a=blob_a,
+                                       alpha=alpha)
+        else:
+            insert = _insert_chunk
         for s0 in range(0, s, chunk):
             sl = slice(s0, min(s, s0 + chunk))
             cls = state["c"][h, sl].long()
@@ -296,8 +316,11 @@ def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
                 ri[h, sl], ti[h, sl], tra_off[h, sl], pf=pf, n=n, mc=mc,
                 cls=cls, k_classes=k_classes)
             off.index_add_(0, cls, o_img)
-        if mode == "2d":
-            parts = [fold_insert2(tab[kc * n_vox:(kc + 1) * n_vox + 1])
+        if dims == 2 or mkb:
+            # each class block with the next row standing in for the drop
+            # row, which the fold ignores
+            fold = fold_insert2 if dims == 2 else brick.fold_insert3
+            parts = [fold(tab[kc * n_vox:(kc + 1) * n_vox + 1])
                      for kc in range(k_classes)]
         else:
             parts = [brick.fold_insert3_lane(tab[:, kc * n_vox:], mc)
@@ -404,6 +427,42 @@ def _insert_chunk(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
     return o_img
 
 
+def add_rows(tab, idx, rows):
+    """tab[idx[i]] += rows[i]: ``index_add_``, the JAX package's XLA row
+    scatter, for the MKB insert."""
+    tab.index_add_(0, idx, rows)
+
+
+def _insert_chunk_mkb(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
+                      t_off, *, pf, n, mc, cls, k_classes, blob_a, alpha):
+    """Insert one chunk of images' support draws with the MKB blob kernel
+    (RECONSTRUCTOR_MKB_KERNEL, src/Reconstructor.cpp:452-556): each sample
+    adds the 8 brick rows of its 4^3 support (``brick.mkb_rows3``) into
+    its class's block of the row-major (K mc^3 + 1, 24) table, out-of-band
+    rows into the drop row; one ``add_rows`` a row set, the 8 sets built
+    one at a time. Each image's DC draws are added once
+    (``dc_draw_weights``). Returns the (B, 4) re-centring sums."""
+    n_vox = mc ** 3
+    rots, t_rel, o_img = _draw_poses(r_sup, t_sup, ri, ti, t_off, w, "3d")
+    coords = projector.slice_coords_3d(rots, col, row, pf=pf)
+    fv, tv = _sample_values(col, row, pmask, d, c, w, t_rel, n,
+                            dc_draw_weights(col, row, ri.shape[1]))
+    tv = tv.expand(fv.shape)
+    b0, frac = brick.mkb_base(coords, mc)
+    del coords
+    cls_off = (cls.long() * n_vox)[:, None, None]
+    drop = torch.full((), k_classes * n_vox, dtype=torch.int64,
+                      device=tab.device)
+    for off3 in brick.MKB_ROW_OFFSETS:
+        idx, w8, valid = brick.mkb_row3(b0, frac, mc, off3, blob_a, alpha)
+        idx = torch.where(valid, idx + cls_off, drop).reshape(-1)
+        rows = brick.insert_rows(w8, fv, tv)
+        del w8, valid
+        add_rows(tab, idx, rows)
+        del idx, rows
+    return o_img
+
+
 def _insert_chunk_2d(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
                      t_off, *, pf, n, mc, cls, k_classes):
     """The 2D counterpart of ``_insert_chunk``: bilinear width-12 rows
@@ -418,29 +477,36 @@ def _insert_chunk_2d(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
     idx, w4, valid = _corners2(coords, mc)
     idx = idx + (cls.long() * n_vox)[:, None, None]
     idx = torch.where(valid, idx, torch.full_like(idx, k_classes * n_vox))
-    contrib = torch.cat([fv.real[..., None] * w4, fv.imag[..., None] * w4,
-                         tv.expand(fv.shape)[..., None] * w4], -1)
-    tab.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 12))
+    tab.index_add_(0, idx.reshape(-1),
+                   brick.insert_rows(w4, fv, tv.expand(fv.shape)))
     return o_img
 
 
 def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
     """Point-group symmetrisation of per-half folded (F, T)
-    (Reconstructor::symmetrizeF/T, src/Reconstructor.cpp:2676-2692). Only
-    grid-exact rotations are ported (all of C2/C4/D2/D4)."""
+    (Reconstructor::symmetrizeF/T, src/Reconstructor.cpp:2676-2692):
+    grid-exact rotations (``exact_ops``) as transposes and flips, the
+    general ones (``general_rots`` (G, 3, 3)) by trilinear gathers from
+    the ORIGINAL arrays, F <- exact(F) + (cropped(F) - F)."""
     from ..core import reconstructor
 
-    if len(general_rots):
-        raise NotImplementedError(
-            "engine.symmetrize_halves: general (non grid-exact) symmetry "
-            "rotations (reconstructor.symmetrize_cropped) are not ported")
-    out = [reconstructor.symmetrize_exact(f[h], t[h], exact_ops, r_u, pf=pf)
-           for h in range(2)]
-    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+    fs, ts = [], []
+    for h in range(2):
+        f_c, t_c = reconstructor.symmetrize_exact(f[h], t[h], exact_ops, r_u,
+                                                  pf=pf)
+        if len(general_rots):
+            f_g, t_g = reconstructor.symmetrize_cropped(
+                f[h], t[h], general_rots, r_u, pf=pf)
+            f_c = f_c + (f_g - f[h])
+            t_c = t_c + (t_g - t[h])
+        fs.append(f_c)
+        ts.append(t_c)
+    return torch.stack(fs), torch.stack(ts)
 
 
 def reconstruct_halves(f, t, fsc, w0, r_u, *, pf, n, join_half=False,
-                       warm=False, blob_a=1.9, blob_alpha=15.0, dims=3):
+                       warm=False, blob_a=1.9, blob_alpha=15.0, dims=3,
+                       insert_kernel="trilinear"):
     """Per-half Wiener/C-balance reconstruction. f/t/w0: (2, mc^d..);
     returns (maps (2, n^d..), converged weights (2, mc^d..))."""
     from ..core import reconstructor
@@ -450,7 +516,8 @@ def reconstruct_halves(f, t, fsc, w0, r_u, *, pf, n, join_half=False,
         v, w = reconstructor.reconstruct_cropped(
             f[h], t[h], fsc, n, pf=pf, max_radius=r_u, join_half=join_half,
             blob_a=blob_a, blob_alpha=blob_alpha,
-            w_init=w0[h] if warm else None, return_w=True, dims=dims)
+            w_init=w0[h] if warm else None, return_w=True, dims=dims,
+            insert_kernel=insert_kernel)
         vols.append(v)
         ws.append(w)
     return torch.stack(vols), torch.stack(ws)
@@ -468,7 +535,7 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
     xa/aa (G, n_shell) scale-fit terms, norm (2, S, n_shell) per-image
     masked-stack residual shells, ori (2, S, n_shell, 3) per-image
     [|datOri|^2, Re(datOri conj(ctf pri)), |ctf pri|^2] shells."""
-    flat, mc, n_vox = _flat_tables(bricks)
+    tabs = _flat_tables(bricks)
     k_cls = bricks.shape[1]
     mode = "2d" if bricks.ndim == 5 else "3d"
     two, s, p = dat.shape
@@ -477,7 +544,7 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
     table = fl(_table_index(state["c"], k_cls))
     coords = _slice_coords(_rot_mats(fl(state["topR"]), mode)[:, None], col,
                            row, pf)
-    pri = fused_class_gather(flat, coords, table, mc, n_vox)[:, 0]
+    pri = fused_class_gather(tabs[0], coords, table, *tabs[1:])[:, 0]
     topt = fl(state["topT"])
     t_o = topt - fl(tra_off)
     tra_o = translation_phase(col, row, t_o[:, 0], t_o[:, 1], n)
