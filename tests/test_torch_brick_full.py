@@ -3,14 +3,10 @@
 - ``gather_vol3``, ``insert3`` + ``fold_insert3``, ``pack_real3`` and
   ``gather_real3`` against the JAX package's on the same NumPy inputs;
 - the full-space projector (``build_brick_projectee_3d(half=False)`` and
-  ``project_brick_3d``) with linear and nearest interpolation (the
-  ``nik_rl`` grid correction), ``project_pixels_3d`` / ``project_pixels_2d``
-  nearest and linear;
+  ``project_brick_3d``), ``project_pixels_3d`` and ``project_pixels_2d``,
+  with the band inside the padded box and reaching its edge;
 - the brick-state API (``empty_brick_state``, ``insert_brick_3d`` /
   ``insert_brick_2d``, ``finalize_brick``);
-- the engine's global scan, local search and residual statistics on
-  full-space tables against the same optimiser's on half-space ones (the
-  half-space path is held to the JAX package in test_torch_engine.py);
 - ``Optimiser.run(max_iter=1)`` with the final round under the general
   groups I, D7 and T and with the MKB insert (their rounds are held to
   the JAX package in tests/test_torch_symmetry_general.py and
@@ -33,7 +29,6 @@ from thunder_tpu.ops import brick as jbrick
 from thunder_tpu.ops.pixels import pixel_ring
 from thunder_tpu_torch.core import projector as tproj
 from thunder_tpu_torch.core import reconstructor as trec
-from thunder_tpu_torch.core.draws import Draws
 from thunder_tpu_torch.ops import brick as tbrick
 
 from test_optimiser_e2e import _make_dataset
@@ -120,21 +115,20 @@ def test_pack_and_gather_real3_match():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("interp", ["linear", "nearest"])
-def test_full_space_projector_matches(interp):
+@pytest.mark.parametrize("r", [8, 11])
+def test_full_space_projector_matches(r):
     """The full-space brick table and its central slices, and the padded
-    spectrum's ring pixels, with each grid correction."""
+    spectrum's ring pixels: a band inside the padded box, and one whose
+    crop reaches its edge."""
     rng = np.random.default_rng(3)
-    n, r = 24, 8
+    n = 24
     vol = _phantom(n, rng)
-    ft_j = jproj.build_projectee_3d(jnp.asarray(vol), pf=2, interp=interp)
-    ft_t = tproj.build_projectee_3d(tt(vol), pf=2, interp=interp)
+    ft_j = jproj.build_projectee_3d(jnp.asarray(vol), pf=2)
+    ft_t = tproj.build_projectee_3d(tt(vol), pf=2)
     assert rel_err(nn(ft_t), ft_j) < 1e-5
-    jt = jproj.build_brick_projectee_3d(jnp.asarray(vol), r, pf=2,
-                                        interp=interp, half=False)
-    tab = tproj.build_brick_projectee_3d(tt(vol), r, pf=2, interp=interp,
-                                         half=False)
-    assert tab.shape == jt.shape == (37, 37, 37, 16)
+    jt = jproj.build_brick_projectee_3d(jnp.asarray(vol), r, pf=2, half=False)
+    tab = tproj.build_brick_projectee_3d(tt(vol), r, pf=2, half=False)
+    assert tab.shape == jt.shape and tab.shape[0] == tab.shape[1]
     assert rel_err(nn(tab), jt) < 1e-5
     ring = pixel_ring(n, 0, r)
     rots = np.asarray(jquat.rotate3d(jquat.random_quat(
@@ -145,30 +139,26 @@ def test_full_space_projector_matches(interp):
     got = nn(tproj.project_brick_3d(tab, *targs, pf=2))
     assert rel_err(got, want) < 1e-5
     # the half-space table of the same volume projects alike
-    half = tproj.build_brick_projectee_3d(tt(vol), r, pf=2, interp=interp,
-                                          half=True)
+    half = tproj.build_brick_projectee_3d(tt(vol), r, pf=2, half=True)
     assert rel_err(nn(tproj.project_brick_3d(half, *targs, pf=2)), got) < 1e-5
-    want = np.asarray(jproj.project_pixels_3d(ft_j, *args, pf=2,
-                                              interp=interp))
-    got = nn(tproj.project_pixels_3d(tt(np.asarray(ft_j)), *targs, pf=2,
-                                     interp=interp))
+    want = np.asarray(jproj.project_pixels_3d(ft_j, *args, pf=2))
+    got = nn(tproj.project_pixels_3d(tt(np.asarray(ft_j)), *targs, pf=2))
     assert rel_err(got, want) < 1e-5
     img = vol[n // 2]
-    im_j = jproj.build_projectee_2d(jnp.asarray(img), pf=2, interp=interp)
-    im_t = tproj.build_projectee_2d(tt(img), pf=2, interp=interp)
+    im_j = jproj.build_projectee_2d(jnp.asarray(img), pf=2)
+    im_t = tproj.build_projectee_2d(tt(img), pf=2)
     assert rel_err(nn(im_t), im_j) < 1e-5
     phi = rng.uniform(0, 2 * np.pi, 5)
     rot2 = np.stack([np.stack([np.cos(phi), -np.sin(phi)], -1),
                      np.stack([np.sin(phi), np.cos(phi)], -1)], -2).astype(
         np.float32)
     want = np.asarray(jproj.project_pixels_2d(
-        im_j, jnp.asarray(rot2), args[1], args[2], pf=2, interp=interp))
+        im_j, jnp.asarray(rot2), args[1], args[2], pf=2))
     got = nn(tproj.project_pixels_2d(tt(np.asarray(im_j)), tt(rot2),
-                                     targs[1], targs[2], pf=2, interp=interp))
+                                     targs[1], targs[2], pf=2))
     assert rel_err(got, want) < 1e-5
-    tab2 = tproj.build_brick_projectee_2d(tt(img), r, pf=2, interp=interp)
-    jt2 = jproj.build_brick_projectee_2d(jnp.asarray(img), r, pf=2,
-                                         interp=interp)
+    tab2 = tproj.build_brick_projectee_2d(tt(img), r, pf=2)
+    jt2 = jproj.build_brick_projectee_2d(jnp.asarray(img), r, pf=2)
     assert rel_err(nn(tab2), jt2) < 1e-5
 
 
@@ -209,46 +199,6 @@ def test_brick_state_api_matches(mode):
     f_t, t_t = trec.finalize_brick(tst, mode=mode)
     assert rel_err(nn(f_t), f_j) < 1e-5
     assert rel_err(nn(t_t), t_j) < 1e-5
-
-
-def _full_bricks(opt, r_band=None):
-    """``Optimiser._bricks`` with full-space tables (half=False)."""
-    r_band = opt.ladder.r if r_band is None else r_band
-    r_band = min(-(-int(r_band) // 8) * 8, opt.n // 2 - 1)
-    return torch.stack([torch.stack([
-        tproj.build_brick_projectee_3d(opt.refs[h, k], r_band, pf=opt.para.pf,
-                                       half=False)
-        for k in range(opt.para.k)]) for h in range(2)])
-
-
-def test_engine_on_full_space_tables():
-    """The global scan, three phases of the local search and the residual
-    statistics of one optimiser on full-space tables against a twin's on
-    the half-space tables, with the same draws: the tables interpolate
-    the same spectrum (a real volume's, Hermitian to its FFT's f32
-    round-off), so the filters follow each other."""
-    data = _make_dataset(n=32, n_imgs=16)
-    para = dataclasses.replace(_para(), table_bf16=False, m_s=400)
-    half = _port(para, data)
-    full = _port(para, data)
-    full._bricks = lambda r_band=None: _full_bricks(full, r_band)
-    tabs = full._bricks()
-    assert tabs.shape[2] == tabs.shape[3] != half._bricks().shape[2]
-    for opt in (half, full):
-        opt.global_scan()
-    for k in ("r", "t", "topR", "topT", "k1", "k2", "k3"):
-        np.testing.assert_allclose(nn(full.par[k]), nn(half.par[k]),
-                                   rtol=1e-3, atol=1e-4, err_msg=k)
-    for opt in (half, full):
-        opt.draws = Draws(11, opt.device)
-        opt.local_search()
-    agree = np.abs(np.sum(nn(full.par["topR"]) * nn(half.par["topR"]), -1))
-    assert np.mean(agree > 0.999) >= 0.9, agree
-    np.testing.assert_array_equal(nn(full.phase_counts),
-                                  nn(half.phase_counts))
-    full.par, full.offsets = half.par, half.offsets
-    for a, b in zip(full._residual_stats()[:4], half._residual_stats()[:4]):
-        assert rel_err(a, b) < 1e-4
 
 
 @pytest.mark.parametrize("sym,mkb", [("I", False), ("D7", False),

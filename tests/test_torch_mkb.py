@@ -1,7 +1,7 @@
 """Port parity: the MKB blob gridding kernel (``Para.mkb_kernel``, the
 reference's RECONSTRUCTOR_MKB_KERNEL, src/Reconstructor.cpp:452-556).
 
-- ``kernels.mkb_ft``, ``nik_rl`` and ``mkb_blob_vol`` within 1e-6;
+- ``kernels.mkb_ft`` and ``mkb_blob_vol`` within 1e-6;
 - ``brick.mkb_rows3``: indices and validity exactly, weights within 1e-6
   (the two packages' exp and sqrt round differently in the last bit);
 - ``insert3_mkb`` + ``fold_insert3`` within 1e-5 of the peak;
@@ -11,6 +11,8 @@ reference's RECONSTRUCTOR_MKB_KERNEL, src/Reconstructor.cpp:452-556).
   in tests/test_brick.py);
 - the engine's ``insert_fold_reduce`` with MKB at K = 1 and K = 2, fused
   and staged class by class;
+- chip_smoke.py's float64 gridding of an MKB chunk (``mkb_grid_f64``,
+  ``MkbChunkCheck``) against the insert, which path F holds on the card;
 - a global round with ``mkb_kernel=True`` from the JAX state, and the
   reconstruction after it, at the slice test's tolerances; the MKB
   reference correlates > 0.9 with the trilinear one from the same state
@@ -25,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from thunder_tpu.config import Para as JPara
 from thunder_tpu.core import reconstructor as jrec
 from thunder_tpu.core.optimiser import Optimiser as JOptimiser
@@ -60,9 +63,6 @@ def test_kernel_profiles_match():
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
         vol_j = float(jk.mkb_blob_vol(a, alpha))
         assert abs(float(tk.mkb_blob_vol(a, alpha)) - vol_j) <= 1e-6 * vol_j
-    np.testing.assert_allclose(nn(tk.nik_rl(tt(r))),
-                               np.asarray(jk.nik_rl(jnp.asarray(r))),
-                               rtol=0, atol=1e-6)
 
 
 def _samples(rng, mc, shape=(3, 60)):
@@ -248,6 +248,42 @@ def test_insert_fold_reduce_mkb_matches(insert_inputs, k_cls, staged):
         tt(passes[-1][1]), tt(s["off"]), pf=2, n=s["n"], mc=s["mc"],
         chunk=4, k_classes=1 if staged else k_cls)
     assert rel_err(nn(f_tri), f_j) > 1e-2
+
+
+def test_smoke_f64_gridding_matches(insert_inputs):
+    """chip_smoke.py's card check of path F, on the CPU: the blob gridded
+    anew in float64 (``mkb_grid_f64``) against ``insert3_mkb`` folded
+    without the mirror, with samples at the band edge, and
+    ``MkbChunkCheck`` around the engine's MKB insert; a wrong blob radius
+    shows."""
+    rng = np.random.default_rng(9)
+    mc = 15
+    coords, fv, tv = _samples(rng, mc)
+    tab = torch.zeros((mc ** 3 + 1, 24))
+    tbrick.insert3_mkb(tab, tt(coords), tt(fv), tt(tv))
+    f, t = tbrick.fold_insert3(tab, hermitian=False)
+    got = torch.stack([f.real, f.imag, t], -1).double()
+    want = cs.mkb_grid_f64(tt(coords), tt(fv), tt(tv), mc, 1.9, 15.0)
+    assert rel_err(nn(got), nn(want)) < 1e-6
+    wrong = cs.mkb_grid_f64(tt(coords), tt(fv), tt(tv), mc, 2.0, 15.0)
+    assert rel_err(nn(got), nn(wrong)) > 1e-2
+    s = insert_inputs
+    ri, ti = insert_draws(s["keys"].reshape(-1, 2), 4, s["st"]["r"].shape[2],
+                          s["st"]["t"].shape[2])
+    sh = s["keys"].shape[:2]
+    with cs.MkbChunkCheck() as chunk:
+        teng.insert_fold_reduce(
+            tt(s["ring"].col), tt(s["ring"].row), tt(s["ring"].mask),
+            tt(s["dat"]), tt(s["ctf"]),
+            {**{k: tt(v) for k, v in s["st"].items()},
+             "c": torch.zeros(sh, dtype=torch.int32)},
+            tt(ri).reshape(sh + (4,)), tt(ti).reshape(sh + (4,)), tt(s["w"]),
+            tt(s["off"]), pf=2, n=s["n"], mc=s["mc"], chunk=4,
+            insert_kernel="mkb")
+    assert teng._insert_chunk_mkb is chunk.real
+    out = chunk.check("CPU")
+    assert out["mc"] == s["mc"] and out["samples"] > 0
+    assert out["max_rel_err"] < 1e-6
 
 
 @pytest.fixture(scope="module")

@@ -6,17 +6,15 @@ rotations are not grid-exact and are applied by trilinear gathers.
 - ``reconstructor.symmetrize_cropped`` (band-cropped grid, brick row
   gathers) and ``symmetrize`` (full padded grid) within 1e-5 of the peak;
 - ``engine.symmetrize_halves`` with grid-exact and general rotations;
-- a global and a local round at ``sym="D7"``, each from the JAX state
-  before it with the JAX draws, at the round tests' tolerances (most top
-  poses within 1 deg, the resolution shell within 1);
 - ``python -m thunder_tpu_torch.cli run --cpu`` on a C3 config to its end:
   the file set, finite poses, a C3-symmetric final map.
 
-``Optimiser.run`` with the final round under I, D7, T and the MKB insert
-is in tests/test_torch_brick_full.py.
+A global and a local round at ``sym="D7"`` from the JAX state are in
+tests/test_torch_symmetry_rounds.py; ``Optimiser.run`` with the final
+round under I, D7, T and the MKB insert is in
+tests/test_torch_brick_full.py.
 """
 
-import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -25,24 +23,18 @@ import pytest
 import torch
 
 from chip_smoke import map_corr, sym_average
-from thunder_tpu.config import Para as JPara
 from thunder_tpu.core import reconstructor as jrec
-from thunder_tpu.core.optimiser import Optimiser as JOptimiser
 from thunder_tpu.geom.symmetry import Symmetry as JSymmetry
 from thunder_tpu.parallel import engine as jeng
 from thunder_tpu.parallel.mesh import make_mesh
-from thunder_tpu_torch import convert
 from thunder_tpu_torch.cli.main import main as tcli
-from thunder_tpu_torch.core import optimiser as tom
 from thunder_tpu_torch.core import reconstructor as trec
 from thunder_tpu_torch.geom.symmetry import Symmetry
 from thunder_tpu_torch.io import ThuColumns, read_mrc, read_thu
 from thunder_tpu_torch.parallel import engine as teng
 
-from test_optimiser_e2e import _make_dataset
 from test_torch_dataset_run import B, _config, _write_dataset
-from test_torch_slice import _angles, _para, _port
-from test_torch_support import JaxDraws, jax_state, nn, rel_err, tt
+from test_torch_support import nn, rel_err, tt
 
 torch.set_num_threads(1)
 
@@ -50,7 +42,6 @@ GROUPS = ("C3", "D7", "T", "I")
 # (grid-exact, general) rotations of each group, identity excluded
 SPLIT = {"C3": (0, 2), "C4": (3, 0), "D7": (1, 12), "T": (0, 11),
          "O": (23, 0), "I": (1, 58)}
-R_LOCAL = 12
 
 
 @pytest.mark.parametrize("sym", ["C1", "C3", "D7", "T", "O", "I"])
@@ -128,48 +119,6 @@ def test_symmetrize_halves_matches(sym):
                                       r_u=r_u)
     assert rel_err(nn(f_t), f_j) < 1e-5
     assert rel_err(nn(t_t), t_j) < 1e-5
-
-
-@pytest.fixture(scope="module")
-def d7_path():
-    """The JAX package's global round and a local round pinned at
-    R_LOCAL at sym="D7", with its state and key before each."""
-    data = _make_dataset(n=32, n_imgs=32)
-    para = dataclasses.replace(_para(), sym="D7", save_ref_each_iter=False,
-                               save_thu_each_iter=False)
-    vol, imgs, _, _, cp = data
-    jo = JOptimiser(JPara(**dataclasses.asdict(para)),
-                    mesh=make_mesh(n_devices=1))
-    jo.set_data(imgs, cp)
-    jo.init_reference(vol=vol)
-    jo.init_sigma()
-    states, keys, recs, quats = [], [], [], []
-    for rnd in range(2):
-        if rnd:
-            jo.ladder.search_type = tom.SEARCH_TYPE_LOCAL
-            jo.ladder.r = R_LOCAL
-            jo.ladder.n_no_decrease = 0
-        states.append(jax_state(jo))
-        keys.append(jo.key)
-        recs.append(jo.run_iteration())
-        quats.append(np.asarray(jo.best_quat))
-    return dict(data=data, para=para, states=states, keys=keys, recs=recs,
-                quats=quats)
-
-
-@pytest.mark.parametrize("rnd", [0, 1])
-def test_d7_round_from_jax_state(d7_path, rnd):
-    p = d7_path
-    opt = convert.load_state(_port(p["para"], p["data"]), p["states"][rnd])
-    opt.draws = JaxDraws(p["para"].seed, p["states"][rnd]["plane_index"])
-    opt.draws.key = p["keys"][rnd]
-    rec = opt.run_iteration()
-    jrec_ = p["recs"][rnd]
-    assert rec["search_type"] == jrec_["search_type"] and rec["r"] == jrec_["r"]
-    assert abs(rec["res_shell"] - jrec_["res_shell"]) <= 1
-    ang = _angles(opt.best_quat, p["quats"][rnd])
-    assert np.mean(ang < 1.0) >= 0.75, np.sort(ang)
-    assert torch.isfinite(opt.refs).all()
 
 
 def test_cli_run_c3(tmp_path):

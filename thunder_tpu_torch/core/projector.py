@@ -2,16 +2,15 @@
 src/Projector.cpp:97-356).
 
 - ``build_projectee_3d``: zero-pad the real-space volume by pf, divide by
-  the grid-correction taper of the interpolation (``interp="linear"``:
-  sinc^2; ``"nearest"``: sinc), centered FFT;
+  the trilinear grid-correction taper, centered FFT;
 - ``build_brick_projectee_3d``: crop that spectrum to the band and pack it
   into the brick gather table: full-space, or the Hermitian half-space
   with ``half=True`` (the refinement rounds' layout);
 - ``project_brick_3d``: one row fetch + 8-wide dot per sample, from
   either layout;
 - ``project_pixels_3d`` / ``project_pixels_2d``: ring pixels of central
-  slices (in-plane rotations) of a full padded spectrum, trilinear or
-  nearest (the tools and the subtraction pipeline);
+  slices (in-plane rotations) of a full padded spectrum, trilinear (the
+  tools and the subtraction pipeline);
 - ``project_full_3d``: full n x n central slices (data synthesis, tools);
 - the 2D counterparts of the first three (2D classification: a class
   average is rotated in plane, ``slice_coords_2d``).
@@ -23,8 +22,8 @@ import torch
 
 from ..ops import brick
 from ..ops.fft import fft2_center, fft3_center
-from ..ops.interp import linear_gather, nearest_gather
-from ..ops.kernels import nik_rl, tik_rl
+from ..ops.interp import linear_gather
+from ..ops.kernels import tik_rl
 
 
 def _pad_rl(vol, pf, dims=3):
@@ -37,7 +36,7 @@ def _pad_rl(vol, pf, dims=3):
     return torch.nn.functional.pad(vol, (lo, hi) * dims)
 
 
-def _grid_correct_rl(vol, dims=3, interp="linear"):
+def _grid_correct_rl(vol, dims=3):
     n_pad = vol.shape[-1]
     r2 = 0
     for ax in range(dims):
@@ -46,26 +45,23 @@ def _grid_correct_rl(vol, dims=3, interp="linear"):
         s = [1] * dims
         s[ax] = n_pad
         r2 = r2 + f.reshape(s) ** 2
-    prof = tik_rl if interp == "linear" else nik_rl
-    return vol / prof(torch.sqrt(r2) / n_pad)
+    return vol / tik_rl(torch.sqrt(r2) / n_pad)
 
 
-def build_projectee_3d(vol_rl, pf=2, interp="linear", grid_correct=True):
+def build_projectee_3d(vol_rl, pf=2, grid_correct=True):
     """Real-space volume (..., n, n, n) -> padded centered spectrum."""
     padded = _pad_rl(vol_rl, pf)
     if grid_correct:
-        padded = _grid_correct_rl(padded, 3, interp)
+        padded = _grid_correct_rl(padded)
     return fft3_center(padded)
 
 
-def build_brick_projectee_3d(vol_rl, r_max, pf=2, interp="linear",
-                             grid_correct=True, dtype=torch.float32,
-                             half=False):
+def build_brick_projectee_3d(vol_rl, r_max, pf=2, grid_correct=True,
+                             dtype=torch.float32, half=False):
     """Real-space volume (n, n, n) -> band-cropped brick table covering
     |k| <= r_max * pf: (mc, mc, mc, C) full-space, or the Hermitian
     half-space (mc//2 + 1, mc, mc, C) with ``half=True``."""
-    ft = build_projectee_3d(vol_rl, pf=pf, interp=interp,
-                            grid_correct=grid_correct)
+    ft = build_projectee_3d(vol_rl, pf=pf, grid_correct=grid_correct)
     mc = brick.crop_size(r_max, pf)
     crop = brick.crop_center_ft(ft, mc)
     if half:
@@ -73,20 +69,19 @@ def build_brick_projectee_3d(vol_rl, r_max, pf=2, interp="linear",
     return brick.pack_vol3(crop, dtype=dtype)
 
 
-def build_projectee_2d(img_rl, pf=2, interp="linear", grid_correct=True):
+def build_projectee_2d(img_rl, pf=2, grid_correct=True):
     """Real-space images (..., n, n) -> padded centered spectra."""
     padded = _pad_rl(img_rl, pf, dims=2)
     if grid_correct:
-        padded = _grid_correct_rl(padded, 2, interp)
+        padded = _grid_correct_rl(padded, dims=2)
     return fft2_center(padded)
 
 
-def build_brick_projectee_2d(img_rl, r_max, pf=2, interp="linear",
-                             grid_correct=True, dtype=torch.float32):
+def build_brick_projectee_2d(img_rl, r_max, pf=2, grid_correct=True,
+                             dtype=torch.float32):
     """Real-space images (..., n, n) -> band-cropped bilinear brick tables
     (..., mc, mc, C) covering |k| <= r_max * pf."""
-    ft = build_projectee_2d(img_rl, pf=pf, interp=interp,
-                            grid_correct=grid_correct)
+    ft = build_projectee_2d(img_rl, pf=pf, grid_correct=grid_correct)
     mc = brick.crop_size(r_max, pf)
     lo = ft.shape[-1] // 2 - mc // 2
     return brick.pack_vol2(ft[..., lo:lo + mc, lo:lo + mc], dtype=dtype)
@@ -125,22 +120,19 @@ def project_brick_3d(tab, rot, col, row, pf=2):
     return brick.gather_vol3(tab, coords)
 
 
-def _gather(interp):
-    return linear_gather if interp == "linear" else nearest_gather
-
-
-def project_pixels_3d(vol_ft, rot, col, row, pf=2, interp="linear"):
+def project_pixels_3d(vol_ft, rot, col, row, pf=2):
     """Central-slice projection at ring pixels of a padded centered
     spectrum (m, m, m) (src/Projector.cpp:222-260): rot (..., 3, 3),
     col/row (P,) signed image frequencies -> (..., P) complex, trilinear
-    or nearest."""
-    return _gather(interp)(vol_ft, slice_coords_3d(rot, col, row, pf=pf))
+    (the JAX package's ``interp="linear"``; nothing calls its nearest
+    mode)."""
+    return linear_gather(vol_ft, slice_coords_3d(rot, col, row, pf=pf))
 
 
-def project_pixels_2d(img_ft, rot, col, row, pf=2, interp="linear"):
+def project_pixels_2d(img_ft, rot, col, row, pf=2):
     """In-plane projection: ring pixels of a padded centered 2D spectrum
-    (m, m) rotated by rot (..., 2, 2) -> (..., P) complex."""
-    return _gather(interp)(img_ft, slice_coords_2d(rot, col, row, pf=pf))
+    (m, m) rotated by rot (..., 2, 2) -> (..., P) complex, bilinear."""
+    return linear_gather(img_ft, slice_coords_2d(rot, col, row, pf=pf))
 
 
 def project_full_3d(vol_ft, rot, n, max_radius, pf=2):

@@ -7,8 +7,7 @@ src/Functions/Functions.cpp with FUNCTIONS_MKB_ORDER_0):
 - ``mkb_rl(r, a, alpha)``: its 3D inverse FT, the C-balance taper of the
   reconstruction and the MKB insert's grid correction;
 - ``mkb_blob_vol(a, alpha)``: the blob's volume (Functions.cpp:218-233);
-- ``tik_rl(r)`` = sinc^2, the trilinear grid-correction profile;
-  ``nik_rl(r)`` = sinc, the nearest-neighbour one.
+- ``tik_rl(r)`` = sinc^2, the trilinear grid-correction profile.
 """
 
 import math
@@ -57,11 +56,6 @@ def _sinc(x):
 def tik_rl(r):
     """sinc^2 grid correction of trilinear interpolation."""
     return _sinc(math.pi * r) ** 2
-
-
-def nik_rl(r):
-    """sinc grid correction of nearest-neighbour interpolation."""
-    return _sinc(math.pi * r)
 
 
 def mkb_blob_vol(a, alpha):

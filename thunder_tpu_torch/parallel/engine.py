@@ -5,10 +5,9 @@ The JAX engine runs each stage as a ``shard_map`` over a (half, data)
 mesh. On one GPU the half axis is a leading dimension of size 2 of every
 per-image tensor — (2, S, ...), plane 0 = hemisphere A, plane 1 = B — and
 the data-axis ``psum`` disappears. Brick tables arrive as one (2, K, hz,
-mc, mc, C) stack of Hermitian half-space tables or (2, K, mc, mc, mc, C)
-full-space tables (3D), or (2, K, mc, mc, C) bilinear tables (2D
-classification); an image's class and half select its table inside one
-fused row gather.
+mc, mc, C) stack of Hermitian half-space tables (3D) or (2, K, mc, mc, C)
+bilinear tables (2D classification); an image's class and half select its
+table inside one fused row gather.
 
 Random draws are tensors passed in by the caller (the optimiser draws them
 from a ``torch.Generator``; the parity tests replay ``jax.random``):
@@ -50,32 +49,32 @@ GATHER_BUDGET = 1 << 25
 
 
 def _flat_tables(bricks):
-    """(2, K, ...) tables -> (flat (2 K n_vox, C), mc, n_vox, half).
-    Half-space tables (2, K, hz, mc, mc, C): n_vox = hz mc mc the rows of
-    one table, hz = mc // 2 + 1 for the odd crop, mc // 2 where the band's
-    crop is clipped to the even padded box (a band near Nyquist).
-    Full-space tables (2, K, mc, mc, mc, C): n_vox = mc^3. 2D tables
-    (2, K, mc, mc, C): n_vox = mc mc."""
+    """(2, K, hz, mc, mc, C) half-space tables -> (flat (2 K n_vox, C),
+    mc, n_vox), n_vox = hz mc mc the rows of one table: hz = mc // 2 + 1
+    for the odd crop, mc // 2 where the band's crop is clipped to the even
+    padded box (a band near Nyquist). 2D tables (2, K, mc, mc, C) have
+    n_vox = mc mc."""
     mc = bricks.shape[-2]
-    flat = bricks.reshape(-1, bricks.shape[-1])
     if bricks.ndim == 5:
-        return flat, mc, mc * mc, False
-    half = bricks.shape[-4] != mc
-    return flat, mc, bricks.shape[-4] * mc * mc, half
+        return bricks.reshape(-1, bricks.shape[-1]), mc, mc * mc
+    if bricks.shape[-4] == mc:
+        raise ValueError(
+            "engine: 3D brick tables are gathered in the Hermitian half-space "
+            "layout; build them with half=True")
+    n_vox = bricks.shape[-4] * mc * mc
+    return bricks.reshape(-1, bricks.shape[-1]), mc, n_vox
 
 
-def fused_class_gather(flat, coords, table, mc, n_vox, half=True):
+def fused_class_gather(flat, coords, table, mc, n_vox):
     """Gather each image's slices from ITS table (half and class folded
-    into ``table`` (B,)): 3D coords (B, ..., 3) from full-space tables, or
-    with the conjugate-mirror fetch from half-space ones (``half``), 2D
-    coords (B, ..., 2) bilinearly. Returns (B, ...) complex64."""
-    sgn = 1.0
+    into ``table`` (B,)): with the conjugate-mirror fetch of the 3D
+    half-space layout for coords (B, ..., 3), bilinear for 2D coords
+    (B, ..., 2). Returns (B, ...) complex64."""
     if coords.shape[-1] == 2:
         idx, w_c, valid = _corners2(coords, mc)
-    elif half:
-        idx, w_c, valid, sgn = brick._corners3_half(coords, mc)
+        sgn = 1.0
     else:
-        idx, w_c, valid = brick._corners3(coords, mc)
+        idx, w_c, valid, sgn = brick._corners3_half(coords, mc)
     idx = torch.where(valid, idx, torch.zeros_like(idx)) + (
         table.long() * n_vox).reshape((-1,) + (1,) * (idx.ndim - 1))
     rows = flat[idx.reshape(-1)].reshape(idx.shape + (flat.shape[-1],))
@@ -149,7 +148,7 @@ def pack_ctf(cp):
     return torch.stack([cp[f].to(real_dtype) for f in CTF_FIELDS], dim=-1)
 
 
-def _phase_step(st, dat, ctf, sig_rcp, table, dr, tabs, col, row,
+def _phase_step(st, dat, ctf, sig_rcp, table, dr, flat, mc, n_vox, col, row,
                 pmask, sym_quats, factor, pf, n, mode, phase, ctf_search):
     """One phase for a batch of ACTIVE images (flattened batch axis):
     perturb -> fused-class projection -> block log-sum-exp -> posterior
@@ -178,7 +177,7 @@ def _phase_step(st, dat, ctf, sig_rcp, table, dr, tabs, col, row,
             defocus_factor=st["d"])                          # (B, nD, P)
         u0_d = dr["u0_d"]
     coords = _slice_coords(_rot_mats(r, mode), col, row, pf)
-    proj = fused_class_gather(tabs[0], coords, table, *tabs[1:])
+    proj = fused_class_gather(flat, coords, table, mc, n_vox)
     tra = translation_phase(col, row, t[..., 0], t[..., 1], n)
     u_r, u_t, u_d = likelihood.local_search_weights(
         dat, ctf, sig_rcp, proj, tra, st["wR"], st["wT"],
@@ -215,7 +214,7 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
     evaluated per defocus point at ``pixel_size``, and d is resampled
     with u0_d (2, S).
     Returns (state, phases run per image (2, S))."""
-    tabs = _flat_tables(bricks)
+    flat, mc, n_vox = _flat_tables(bricks)
     k_cls = bricks.shape[1]
     two, s = dat.shape[:2]
     nb = two * s
@@ -244,7 +243,7 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
             new, shr = _phase_step(
                 {k: v[ix] for k, v in st.items()}, d_f[ix], c_f[ix],
                 s_f[ix], table[ix], {k: v[ix] for k, v in dr.items()},
-                tabs, col, row, pmask, sym_quats, factor, pf, n,
+                flat, mc, n_vox, col, row, pmask, sym_quats, factor, pf, n,
                 mode, phase,
                 None if cp_f is None else (cp_f[ix], factor_d, pixel_size))
             for k, v in new.items():
@@ -535,7 +534,7 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
     xa/aa (G, n_shell) scale-fit terms, norm (2, S, n_shell) per-image
     masked-stack residual shells, ori (2, S, n_shell, 3) per-image
     [|datOri|^2, Re(datOri conj(ctf pri)), |ctf pri|^2] shells."""
-    tabs = _flat_tables(bricks)
+    flat, mc, n_vox = _flat_tables(bricks)
     k_cls = bricks.shape[1]
     mode = "2d" if bricks.ndim == 5 else "3d"
     two, s, p = dat.shape
@@ -544,7 +543,7 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
     table = fl(_table_index(state["c"], k_cls))
     coords = _slice_coords(_rot_mats(fl(state["topR"]), mode)[:, None], col,
                            row, pf)
-    pri = fused_class_gather(tabs[0], coords, table, *tabs[1:])[:, 0]
+    pri = fused_class_gather(flat, coords, table, mc, n_vox)[:, 0]
     topt = fl(state["topT"])
     t_o = topt - fl(tra_off)
     tra_o = translation_phase(col, row, t_o[:, 0], t_o[:, 1], n)
