@@ -5,6 +5,8 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py            # everything, on one card
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --cli      # build + path D (phase 9) only
+    python3 chip_smoke.py --mp       # build + path G (phase 12) only
+    python3 chip_smoke.py --mp --ranks 4  # path G as 4 ranks (4 cards: nccl)
     python3 chip_smoke.py --cli-study  # build + path D's run, 10 seeds
     python3 chip_smoke.py --data-study  # + the round on bench.py's data
     python3 chip_smoke.py --sym      # build + path E (phase 10) only
@@ -148,8 +150,33 @@ Phases, each printing a flushed progress line with elapsed seconds:
    between them the MKB and the trilinear reference from the same state
    and draws, correlating above MKB_TRI_CORR_MIN, both inserts timed;
    after them the MKB insert timed at the local band;
-12. a JSON line of per-kernel numbers (launches summed over the rounds of
-   phases 5a-b and 6-11, and per round or run; K1's readings at the
+12. path G, a multi-process run: path D's dataset (written anew) and
+   ``cli run`` config as MP_RANKS = 2 ranks on the one card, each a
+   process of this script (``--rank-run``: ``thunder_tpu_torch.cli.main``
+   with the kernels' counts set to 0 just before it and reported just
+   after) under torchrun's variables and a free port, joined on gloo
+   (NCCL refuses two ranks on one device; with a card a rank, as
+   ``--mp --ranks 4`` on four cards, the ranks join on nccl, each on its
+   own card); the launcher kills all ranks as soon as one exits non-zero
+   or MP_WALL_S passes. The run (CLI_ITERS global
+   rounds and the final round; rank 1 given an output directory of its
+   own): each rank on cuda:0 launches K1 in every global round and K2 in
+   every round, 2 halves x one 64-image chunk of its 128 images a call;
+   only rank 0 printed the history and wrote the run's files (the file set
+   of path D; each other rank's directory holds only its thunder.log); each rank
+   logged that the ranks' states agreed after every round; each round's
+   Meta_Round_*.thu poses under ROUND_ANG_MAX and its shell at
+   ROUND_RES_MIN, Meta_Final.thu's shifts within path D's bars, the final
+   shell at ROUND_RES_MIN and the final map's FSC against the phantom
+   above 0.5 over shells 1 .. TOOL_RECON_SHELLS. Then the resume from its
+   Meta_Final.thu with subtraction, both ranks into one directory: K1 0
+   and K2 in the local round, the final round and the subtraction's
+   reconstruction, the pose bar, Subtract_Rank_000000.mrcs and
+   Subtract_Rank_000001.mrcs reassembled through Meta_Subtract.thu's paths
+   (each slice once) and held to SUB_RESID_MAX; each run's wall seconds
+   and each rank's peak device memory beside the card line;
+13. a JSON line of per-kernel numbers (launches summed over the rounds of
+   phases 5a-b and 6-12 (path G's over its ranks), and per round or run; K1's readings at the
    class-stacked shapes; K2's on the fused class table and on a
    final-band chunk), the card line again, and the final status line
    {"ok": true, "device": {...}}.
@@ -181,7 +208,7 @@ run's readings of what path D holds to bars and their ranges: the spread
 those bars are set from.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-Path C's, D's and E's files go to temporary directories outside the
+Path C's, D's, E's and G's files go to temporary directories outside the
 repository, removed at their ends.
 It imports nothing of JAX or of the JAX package: the synthetic data are
 made with NumPy and the port's own projector, CTF and translation code.
@@ -291,6 +318,16 @@ RESUME_HI_ANG_MAX = 0.6
 SUB_RESID_MAX = 4.6
 SUB_HI_MAX = 6.0
 SUB_TRUTH_MAX = 1.05
+# path G, a multi-process run: path D's dataset and config as MP_RANKS
+# ranks of ``cli run`` on the one card (gloo: NCCL refuses two ranks on one
+# device), each a process of its own under torchrun's variables, started
+# and watched by this script, which kills them all when one fails or
+# MP_WALL_S passes; the run is held to path D's bars (each round's poses
+# and shell, Meta_Final.thu's shifts, the final shell, the final map
+# against the phantom over shells 1 .. TOOL_RECON_SHELLS) and the resume's
+# reassembled subtraction to SUB_RESID_MAX
+MP_RANKS = 2
+MP_WALL_S = 120
 # path E, general point-group symmetry: bench.py's Para with sym I on 256
 # images of an I-symmetric phantom (``sym_phantom`` of SYM_DESIGN: 30
 # small Gaussians within 0.25 n of the centre, each under the 60 matrices
@@ -2223,6 +2260,278 @@ def shift_readings(meta, tr):
                 slope=[float(x) for x in slope])
 
 
+# ------------------------------------------ path G: ranks on the one card
+
+def rank_run(argv):
+    """``--rank-run REPORT -- ARGS``: one rank of path G. Runs
+    ``thunder_tpu_torch.cli.main(ARGS)`` in this process (the launch
+    variables come from the environment) with the kernels' counts set to 0
+    just before and read just after, and writes them, the wall seconds and
+    the peak device memory to the JSON file REPORT."""
+    import torch
+
+    from thunder_tpu_torch.cli.main import main as cli
+    from thunder_tpu_torch.ops import insert, likelihood
+
+    report, args = argv[0], argv[2:]
+    likelihood.LAUNCHES["scan_fused"] = 0
+    insert.LAUNCHES["insert_update"] = 0
+    t0 = time.perf_counter()
+    cli(args)
+    wall = time.perf_counter() - t0
+    with open(report, "w") as f:
+        json.dump(dict(wall=wall, peak_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30, launches={
+                           "global_scan": likelihood.LAUNCHES["scan_fused"],
+                           "insert_update":
+                               insert.LAUNCHES["insert_update"]}), f)
+
+
+def launch_ranks(work, label, rank_args):
+    """Start one rank of ``rank_run`` for each entry of ``rank_args``
+    (rank r with the cli arguments ``rank_args[r]``), all on this host,
+    under torchrun's variables and a free port, kill them all as soon as one exits non-zero or MP_WALL_S passes,
+    and return (wall seconds, each rank's report, each rank's output).
+    This process's cached device memory is released first."""
+    import gc
+    import socket
+
+    import torch
+
+    # the ranks share the card with this process: hand back the blocks its
+    # caching allocator kept from the earlier paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"path G {label}: this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB of the card "
+        f"({torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB reserved) as "
+        "the ranks start")
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    ranks = len(rank_args)
+    procs, logs = [], [f"{work}/{label}_rank{r}.log" for r in range(ranks)]
+    t0 = time.perf_counter()
+    try:
+        for r in range(ranks):
+            env = dict(os.environ, MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(ranks),
+                       RANK=str(r), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(ranks))
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(root, "chip_smoke.py"),
+                     "--rank-run", f"{work}/{label}_rank{r}.json", "--",
+                     *map(str, rank_args[r])],
+                    env=env, cwd=root, stdout=f, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) \
+                    or time.perf_counter() - t0 > MP_WALL_S:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    outs = []
+    for path in logs:
+        with open(path, errors="replace") as f:
+            outs.append(f.read())
+    codes = [p.returncode for p in procs]
+    if codes != [0] * ranks:
+        raise AssertionError(
+            f"path G {label}: ranks exited {codes} after {wall:.1f} s (wall "
+            f"limit {MP_WALL_S} s):\n" + "\n".join(
+                f"--- rank {r}:\n{o[-4000:]}" for r, o in enumerate(outs)))
+    reports = []
+    for r in range(ranks):
+        with open(f"{work}/{label}_rank{r}.json") as f:
+            reports.append(json.load(f))
+    return wall, reports, outs
+
+
+def rank_devices(dev, ranks):
+    """The backend and each rank's device that ``maybe_initialize``
+    chooses for ``ranks`` ranks on this host: nccl with a card a rank,
+    gloo with more ranks than cards (or on the CPU)."""
+    import torch
+
+    if dev.type != "cuda":
+        return "gloo", ["cpu"] * ranks
+    n_dev = torch.cuda.device_count()
+    return ("nccl" if ranks <= n_dev else "gloo",
+            [f"cuda:{r % n_dev}" for r in range(ranks)])
+
+
+def check_ranks(dev, label, reports, outs, scans, inserts, rounds, logs):
+    """Each rank joined the group on the backend and device
+    ``rank_devices`` names and launched K1 ``scans`` and K2 ``inserts``
+    times; only rank 0 printed the history (returned); every rank's
+    thunder.log (``logs[r]``) records that the ranks agreed after each of
+    the ``rounds`` rounds."""
+    ranks = len(reports)
+    backend, devices = rank_devices(dev, ranks)
+    for r, (rep, out) in enumerate(zip(reports, outs)):
+        want = (f"rank {r} of {ranks}: backend {backend}, device "
+                f"{devices[r]}")
+        if want not in out:
+            raise AssertionError(f"path G {label} rank {r}: no '{want}'")
+        if rep["launches"] != {"global_scan": scans,
+                               "insert_update": inserts}:
+            raise AssertionError(f"path G {label} rank {r}: launches "
+                                 f"{rep['launches']}, expected K1 {scans}, "
+                                 f"K2 {inserts}")
+        with open(logs[r]) as f:
+            text = f.read()
+        for i in range(1, rounds + 1):
+            if (f"[host {r}] [thunder.ROUND] round {i}: the {ranks} "
+                    "ranks agree") not in text:
+                raise AssertionError(f"path G {label} rank {r}: no state "
+                                     f"check after round {i}")
+    printed = [[json.loads(x) for x in o.splitlines() if x.startswith("{")]
+               for o in outs]
+    if [len(p) for p in printed] != [rounds] + [0] * (ranks - 1):
+        raise AssertionError(f"path G {label}: history lines per rank "
+                             f"{[len(p) for p in printed]}")
+    return printed[0]
+
+
+def reassembled_subtraction(out, b, n, ranks):
+    """The ranks' Subtract_Rank_%06d.mrcs put back in the 1-rank order
+    (g-major, image l of copy gi at gi b + l) through Meta_Subtract.thu's
+    paths, each (rank, slice) used exactly once."""
+    import re
+
+    import numpy as np
+
+    from thunder_tpu_torch.io import read_mrc, read_thu
+
+    stacks = [read_mrc(f"{out}/Subtract_Rank_{r:06d}.mrcs")
+              for r in range(ranks)]
+    meta = read_thu(f"{out}/Meta_Subtract.thu")
+    g = len(meta) // b
+    if len(meta) != 4 * b or sum(len(x) for x in stacks) != 4 * b:
+        raise AssertionError(f"path G subtraction: {len(meta)} rows, rank "
+                             f"stacks {[x.shape for x in stacks]}")
+    sub = np.empty((4 * b, n, n), np.float32)
+    used = set()
+    for row, path in enumerate(meta.particle_paths):
+        m = re.fullmatch(r"(\d+)@Subtract_Rank_(\d+)\.mrcs", path)
+        sl, rk = int(m.group(1)) - 1, int(m.group(2))
+        used.add((rk, sl))
+        sub[(row % g) * b + row // g] = stacks[rk][sl]
+    if len(used) != 4 * b or not np.isfinite(sub).all():
+        raise AssertionError(f"path G subtraction: {len(used)} distinct "
+                             f"slices for {4 * b} rows")
+    return sub, [len(x) for x in stacks]
+
+
+def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
+    """Path G: path D's run and a resume with subtraction as ``ranks``
+    ranks on this host's cards (see the module docstring, phase 12).
+    Returns the launches of both, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from thunder_tpu_torch.io import ThuColumns, read_mrc, read_thu
+
+    work = tempfile.mkdtemp(prefix="thunder_mp_")
+    try:
+        stack, truth = write_cli_dataset(dev, work, n, b)
+        q_true = truth["q"]
+        quats = lambda t: t.values[:, ThuColumns.QUAT_0:ThuColumns.QUAT_3 + 1]
+        # a rank's calls: 2 halves x its 64-image chunks
+        calls = 2 * -(-(b // 2 // ranks) // 64)
+        # rank 0 writes into out, the others get directories of their own
+        outs_r = [f"{work}/out"] + [f"{work}/out_rank{r}"
+                                    for r in range(1, ranks)]
+        out = outs_r[0]
+        with open(f"{work}/run.json", "w") as f:
+            json.dump(cli_config(work, f"{work}/particles.thu", out, n=n), f)
+        wall, reps, outs = launch_ranks(work, "run", [
+            ["run", f"{work}/run.json", "-o", o] for o in outs_r])
+        hist = check_ranks(dev, "cli run", reps, outs, CLI_ITERS * calls,
+                           (CLI_ITERS + 1) * calls, CLI_ITERS,
+                           [f"{o}/thunder.log" for o in outs_r])
+        got = set(os.listdir(out))
+        others = [sorted(os.listdir(o)) for o in outs_r[1:]]
+        want = expected_files(range(1, CLI_ITERS + 1)) | {"thunder.log"}
+        if got != want or any(x != ["thunder.log"] for x in others):
+            raise AssertionError(f"path G files: rank 0 missing "
+                                 f"{sorted(want - got)}, unexpected "
+                                 f"{sorted(got - want)}; the other ranks "
+                                 f"wrote {others}")
+        errs = [float(np.median(pose_error_q(quats(read_thu(
+            f"{out}/Meta_Round_{i:03d}.thu")), q_true)))
+            for i in range(1, CLI_ITERS + 1)]
+        shells = [h["res_shell"] for h in hist]
+        meta = read_thu(f"{out}/Meta_Final.thu")
+        shift = shift_readings(meta, truth["tr"])
+        res_inv = float(np.loadtxt(f"{out}/Class_Info_Final.txt",
+                                   ndmin=2)[0, 1])
+        final_shell = int(res_inv * n * 1.32 + 0.5)
+        fsc = map_fsc(dev, read_mrc(f"{out}/Reference_000_Final.mrc"),
+                      truth["vol"])
+        low = fsc[1:TOOL_RECON_SHELLS + 1]
+        backend, devices = rank_devices(dev, ranks)
+        log(f"path G cli run, {ranks} ranks (backend {backend}, devices "
+            f"{devices}): {wall:.2f} s (each rank "
+            f"{[round(r['wall'], 2) for r in reps]} s in cli.main, peak "
+            f"{[round(r['peak_gib'], 3) for r in reps]} GiB; {card}); "
+            f"launches {[r['launches'] for r in reps]}; rounds' median pose "
+            f"error {[round(e, 3) for e in errs]} deg, shells {shells}; "
+            f"Meta_Final.thu shifts {json.dumps(shift)}; final shell "
+            f"{final_shell}; final map against the phantom: FSC min over "
+            f"shells 1 .. {TOOL_RECON_SHELLS} {low.min():.4f}, first under "
+            f"0.5 at {int(np.argmax(fsc[1:] < 0.5)) + 1}; only rank 0 wrote "
+            f"files; the ranks agreed after every round")
+        lo, hi = META_TRANS_SLOPE
+        if not (max(errs) < ROUND_ANG_MAX and min(shells) >= ROUND_RES_MIN
+                and final_shell >= ROUND_RES_MIN and low.min() > 0.5
+                and shift["err"] < META_TRANS_MAX
+                and max(map(abs, shift["bias"])) < META_TRANS_BIAS_MAX
+                and all(lo < x < hi for x in shift["slope"])):
+            raise AssertionError(f"path G cli run: pose errors {errs}, "
+                                 f"shells {shells}, final {final_shell}, "
+                                 f"FSC {low}, shifts {shift}")
+
+        resume = f"{work}/resume"
+        with open(f"{work}/resume.json", "w") as f:
+            json.dump(cli_config(work, f"{out}/Meta_Final.thu", resume,
+                                 g_search=False, iters=1, subtract=True,
+                                 n=n), f)
+        r_wall, r_reps, r_outs = launch_ranks(
+            work, "resume", [["run", f"{work}/resume.json"]] * ranks)
+        check_ranks(dev, "resume + subtraction", r_reps, r_outs, 0,
+                    3 * calls, 1, [f"{resume}/thunder.log"] * ranks)
+        r_err = float(np.median(pose_error_q(quats(read_thu(
+            f"{resume}/Meta_Final.thu")), q_true)))
+        sub, per_rank = reassembled_subtraction(resume, b, n, ranks)
+        r_mask = 75.0 * n / 160 / 1.32
+        ratio = residual_ratio(sub[:b], r_mask)
+        log(f"path G resume + subtraction, {ranks} ranks: {r_wall:.2f} s "
+            f"(each rank {[round(r['wall'], 2) for r in r_reps]} s, peak "
+            f"{[round(r['peak_gib'], 3) for r in r_reps]} GiB; {card}); "
+            f"launches {[r['launches'] for r in r_reps]}; pose error "
+            f"{r_err:.3f} deg; the ranks' Subtract_Rank_*.mrcs hold "
+            f"{per_rank} images, Meta_Subtract.thu's paths reassemble each "
+            f"of {4 * b} once; variance inside / outside the mask radius "
+            f"{ratio:.4f} (bar {SUB_RESID_MAX})")
+        if not (r_err < ROUND_ANG_MAX and ratio < SUB_RESID_MAX):
+            raise AssertionError(f"path G resume: pose error {r_err}, "
+                                 f"subtraction ratio {ratio}")
+        total = lambda rs: {k: sum(r["launches"][k] for r in rs)
+                            for k in ("global_scan", "insert_update")}
+        return {"mp_run": total(reps), "mp_resume_subtract": total(r_reps)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def cli_study(dev, seeds=(0, 0, 0, 0, 14, 15, 16, 17, 18, 19), n=160,
               b=N_PARTICLES):
     """``--cli-study``: path D's ``cli run`` and its two resumes on the
@@ -3451,6 +3760,10 @@ def main(argv):
     import thunder_tpu_torch  # noqa: F401  (fails outside the repository)
     from thunder_tpu_torch import cuda_build
 
+    if "--rank-run" in argv:
+        rank_run(argv[argv.index("--rank-run") + 1:])
+        return 0
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3475,6 +3788,12 @@ def main(argv):
         return 0
     if "--cli-study" in argv:
         cli_study(dev)
+        return 0
+    if "--mp" in argv:
+        ranks = (int(argv[argv.index("--ranks") + 1]) if "--ranks" in argv
+                 else MP_RANKS)
+        log(f"path G launches: "
+            f"{json.dumps(run_mp_path(dev, card, ranks=ranks))}")
         return 0
     if "--sym" in argv:
         log(f"path E launches: {json.dumps(run_sym_path(dev))}")
@@ -3509,6 +3828,7 @@ def main(argv):
         per_path.update(run_class2d(dev))
         per_path.update(run_ctf_path(dev, k2))
         per_path.update(run_cli_path(dev, card))
+        per_path.update(run_mp_path(dev, card))
         per_path.update(run_sym_path(dev))
         per_path.update(run_mkb_path(dev))
         launches = {name: sum(p[name] for p in per_path.values())

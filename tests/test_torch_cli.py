@@ -11,7 +11,14 @@ together, and the printed lines equal unless a number is a float sum:
   genmask_shell) within 1e-5 relative (``reconstruct``'s C-balance map
   within 1e-4);
 - ``postprocess``, given the JAX package's phase fields, within 1e-4.
+
+``run`` itself (tests/test_torch_dataset_run.py) is also started here as
+two ranks of ``python -m thunder_tpu_torch.cli --cpu run`` under the JAX
+package's launch variables and under torchrun's.
 """
+
+import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +32,7 @@ from thunder_tpu.io.thu import make_table, write_thu
 from thunder_tpu_torch.cli.main import main as tcli
 from thunder_tpu_torch.core import postprocess as tpost
 
-from test_torch_support import rel_err, tt
+from test_torch_support import free_port, rank_env, rel_err, run_ranks, tt
 
 torch.set_num_threads(1)
 
@@ -221,9 +228,45 @@ def test_every_subcommand_is_ported():
     assert len(jp) == 17 and tp == jp
 
 
-def test_run_refuses_a_multi_process_launch(monkeypatch, tmp_path):
-    """Where the JAX package would join a multi-process run, the port's
-    ``run`` raises before it reads anything."""
-    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        tcli(["--cpu", "run", str(tmp_path / "missing.json")])
+@pytest.mark.parametrize("launcher", ["jax", "torchrun"])
+def test_run_joins_a_multi_process_launch(launcher, tmp_path):
+    """``python -m thunder_tpu_torch.cli --cpu run`` started as two ranks
+    under the JAX package's launch variables or under torchrun's joins one
+    gloo group: each rank reads its own half of the images, the two run one
+    round and the final round together, rank 0 alone prints the history
+    and writes the run's files, and both log to the one thunder.log."""
+    from thunder_tpu.io.thu import ThuColumns
+
+    from test_torch_dataset_run import B as N_IMG
+    from test_torch_dataset_run import _config, _write_dataset
+
+    _write_dataset(tmp_path)
+    cfg = tmp_path / "one.json"
+    cfg.write_text(json.dumps(_config(tmp_path, tmp_path / "out",
+                                      tmp_path / "particles.thu", iters=1)))
+    port = free_port()
+    if launcher == "jax":
+        envs = [rank_env(JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                         JAX_NUM_PROCESSES=2, JAX_PROCESS_ID=r)
+                for r in range(2)]
+    else:
+        envs = [rank_env(MASTER_ADDR="localhost", MASTER_PORT=port,
+                         WORLD_SIZE=2, RANK=r, LOCAL_RANK=r,
+                         LOCAL_WORLD_SIZE=2) for r in range(2)]
+    argv = [sys.executable, "-m", "thunder_tpu_torch.cli", "--cpu", "run",
+            str(cfg)]
+    outs = run_ranks([argv, argv], envs, str(tmp_path), timeout=240)
+    for r, out in enumerate(outs):
+        assert f"rank {r} of 2: backend gloo, device cpu" in out, out
+    history = [json.loads(x) for x in outs[0].splitlines()
+               if x.startswith("{")]
+    assert [h["iter"] for h in history] == [1]
+    assert not any(x.startswith("{") for x in outs[1].splitlines())
+    meta = read_thu(str(tmp_path / "out" / "Meta_Final.thu"))
+    assert len(meta) == N_IMG
+    assert np.isfinite(meta.values[:, ThuColumns.COORDINATE_X:]).all()
+    log = (tmp_path / "out" / "thunder.log").read_text()
+    for r in range(2):
+        assert f"[host {r}]" in log
+    assert log.count(f"this host loaded {N_IMG // 2} local slices") == 2
+    assert "round 1: the 2 ranks agree" in log

@@ -72,7 +72,7 @@ def test_infer_acg_and_mean_match():
     a_got = nn(tdir.infer_acg(tt(q), tt(w)))
     np.testing.assert_allclose(a_got, a_ref, rtol=2e-4, atol=2e-6)
     m_ref = np.asarray(jdir.infer_acg_mean(jnp.asarray(q)))
-    m_got = nn(tdir.acg_mean(tt(q)))
+    m_got = nn(tdir.infer_acg_mean(tt(q)))
     assert abs(float(np.dot(m_ref, m_got))) > 1 - 1e-5  # sign is free
     # batched leading dims equal the per-item results
     qb = np.stack([q, q[::-1]])

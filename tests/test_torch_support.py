@@ -189,6 +189,71 @@ class JaxDraws:
                                      maxval=2 * jnp.pi, dtype=jnp.float32))
 
 
+def free_port():
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argvs, envs, logdir, timeout):
+    """Start one process per argv (with its env), wait for all of them
+    under ``timeout`` seconds, and kill the others as soon as one exits
+    non-zero or the time is up. Each process's output goes to a file in
+    ``logdir``. Returns the outputs; raises with them on a failure."""
+    import os
+    import subprocess
+    import time
+
+    logs = [os.path.join(logdir, f"rank_{i}.log") for i in range(len(argvs))]
+    procs = []
+    for argv, env, log in zip(argvs, envs, logs):
+        with open(log, "wb") as f:
+            procs.append(subprocess.Popen(argv, env=env, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    end = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = any(p.returncode not in (None, 0) for p in procs)
+            if failed or time.monotonic() > end:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for log in logs:
+        with open(log, errors="replace") as f:
+            outs.append(f.read())
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"ranks exited {codes}:\n" + "\n".join(
+            f"--- rank {i}:\n{o[-3000:]}" for i, o in enumerate(outs)))
+    return outs
+
+
+def rank_env(**extra):
+    """This process's environment without any launch variables, one
+    thread a process, the repository on the path, plus ``extra``."""
+    import os
+
+    drop = {"RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+            "MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATOR_ADDRESS",
+            "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"}
+    env = {k: v for k, v in os.environ.items() if k not in drop}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    env["OMP_NUM_THREADS"] = "1"
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
 def jax_state(opt):
     """A JAX optimiser's state as the dict ``convert.load_state`` takes."""
     out = {"refs": np.asarray(opt.refs), "sig": np.asarray(opt.sig),

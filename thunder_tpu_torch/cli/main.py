@@ -21,6 +21,10 @@ lines, run on the CUDA device unless ``--cpu`` is given:
     thu2star     .thu -> RELION STAR
 
     python -m thunder_tpu_torch.cli run config.json [-o DIR] [--profile DIR]
+    torchrun --nproc-per-node N -m thunder_tpu_torch.cli run config.json
+
+``run`` joins a multi-process run under torchrun's variables or the JAX
+package's (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID).
 """
 
 import argparse
@@ -46,31 +50,38 @@ def _host(x):
     return x.detach().cpu().numpy()
 
 
-def _single_process():
-    """Refuse a multi-process launch: where the JAX package would join
-    one (JAX_COORDINATOR_ADDRESS or JAX_NUM_PROCESSES set), the port has
-    no multi-GPU path yet."""
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") \
-            or os.environ.get("JAX_NUM_PROCESSES"):
-        raise NotImplementedError(
-            "thunder_tpu_torch.cli run: multi-process runs are not ported "
-            "yet; unset JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES")
-
-
 def cmd_run(args):
+    """Refinement; under torchrun's variables or the JAX package's
+    (``parallel.distributed.maybe_initialize``) one rank of a
+    multi-process run, which leaves its process group at the end."""
+    from ..parallel import distributed
+
+    dev = distributed.maybe_initialize(cpu=getattr(args, "cpu", False))
+    try:
+        _run(args, dev)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, dev):
     from ..config import load_para
     from ..core.optimiser import Optimiser
     from ..data import ParticleDataset
     from ..io import ThuColumns, read_mrc
+    from ..parallel import distributed
     from ..utils import get_logger, init_logger
 
-    _single_process()
-    dev = _device(args)
+    rank, world = distributed.rank(), distributed.world_size()
     para = load_para(args.config, strict=getattr(args, "strict", False))
     if args.output:
         para.output_directory = args.output
-    init_logger(para.output_directory, process_index=0)
+    init_logger(para.output_directory, process_index=rank)
     get_logger("SYS").info("parameters loaded from %s", args.config)
+    if world > 1:
+        joined = (f"rank {rank} of {world}: backend "
+                  f"{distributed.backend()}, device {dev}")
+        get_logger("SYS").info(joined)
+        print(joined, flush=True)
     prof = None
     if getattr(args, "profile", None):
         import torch
@@ -101,7 +112,11 @@ def cmd_run(args):
     if prof is not None:
         prof.stop()
         os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        prof.export_chrome_trace(os.path.join(
+            args.profile, f"trace_rank_{rank:06d}.json" if rank
+            else "trace.json"))
+    if not distributed.is_main():
+        return
     for rec in history:
         print(json.dumps(
             rec, default=lambda o: o.tolist() if hasattr(o, "tolist")

@@ -103,3 +103,42 @@ class Draws:
         random phases of a class that ``balance_class`` resigns (asked
         once per resigned class and half)."""
         return self._rand(*shape) * (2 * math.pi)
+
+
+class RowDraws:
+    """The per-image draws of ``draws`` cut to one rank's slots: every
+    rank of a multi-process run draws the global (2, S) batch from the same
+    stream and keeps the rows ``rows`` (a slice of S), so each image takes
+    the same draws whatever the rank count. Draws that are not per image
+    (the scan grid, the FSC phase fields, a resigned class's phases) pass
+    through unchanged. ``draws`` is any object with ``Draws``' methods."""
+
+    def __init__(self, draws, rows):
+        self.draws = draws
+        self.rows = rows
+
+    def __getattr__(self, name):
+        return getattr(self.draws, name)
+
+    def _cut(self, x):
+        return x[:, self.rows]
+
+    def scale_quats(self, shape):
+        return self._cut(self.draws.scale_quats(shape))
+
+    def scale_angles(self, shape):
+        return self._cut(self.draws.scale_angles(shape))
+
+    def scan_seed(self, iteration, shape, k):
+        return tuple(map(self._cut, self.draws.scan_seed(iteration, shape,
+                                                         k)))
+
+    def phase_draws(self, iteration, shape, n_r, n_t, mode="3d", n_d=0):
+        draw = self.draws.phase_draws(iteration, shape, n_r, n_t, mode=mode,
+                                      n_d=n_d)
+        return lambda phase: {k: self._cut(v)
+                              for k, v in draw(phase).items()}
+
+    def insert(self, iteration, shape, n_draw, n_r, n_t):
+        return tuple(map(self._cut, self.draws.insert(iteration, shape,
+                                                      n_draw, n_r, n_t)))

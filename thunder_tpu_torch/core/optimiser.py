@@ -41,9 +41,19 @@ in solvent flattening when ``use_mask`` asks for it and in the golden FSC
 under ``mask_fsc``. With ``para.subtract`` the final round ends in the
 signal-subtraction pipeline (``_subtract_pipeline``: the subtracted stack
 Subtract_Rank_000000.mrcs and Meta_Subtract.thu).
+
+A multi-process run (``parallel.distributed``) splits the S slots of both
+planes over the ranks (``rows``): each rank reads and holds its own slots'
+images and state, every sum over images is all-reduced (the insert's
+folded F/T per half, the statistics), per-image views for files are
+gathered (``_from_plane``), and rank 0 broadcasts what steers the run
+(references, FSC, ladder) and alone writes the files; each rank writes its
+own subtraction stack. The draws keep the global (2, S) shape on every
+rank (``draws.RowDraws``), so a run does not depend on the rank count.
 """
 
 import dataclasses
+import hashlib
 import os
 import time
 
@@ -64,9 +74,10 @@ from ..ops.filters import low_pass_filter
 from ..utils import check_memory_usage, get_logger
 from ..ops.mask import soft_mask_shape
 from ..ops.translate import translate_ft, translate_ft_3d, translation_phase
-from ..parallel import engine
+from ..parallel import distributed, engine
+from ..parallel.mesh import make_mesh
 from . import particle, projector, reconstructor, sampling
-from .draws import Draws
+from .draws import Draws, RowDraws
 
 SEARCH_TYPE_GLOBAL = 0
 SEARCH_TYPE_LOCAL = 1
@@ -215,12 +226,14 @@ class LadderState:
 
 
 class Optimiser:
-    """Single-device optimiser. ``device`` defaults to CUDA; ``draws``
-    defaults to a ``Draws`` generator seeded with ``para.seed``."""
+    """One rank's optimiser on one device. ``device`` defaults to CUDA;
+    ``draws`` defaults to a ``Draws`` generator seeded with ``para.seed``;
+    ``mesh`` (``parallel.mesh.Mesh``) defaults to the process group this
+    process joined, one rank without one."""
 
     DEFAULT_IMAGE_BATCH = 64
 
-    def __init__(self, para: Para, device=None, draws=None):
+    def __init__(self, para: Para, device=None, draws=None, mesh=None):
         # the kernels are picked by the tensors' device; no other choice
         # of the JAX package's backends exists here
         if para.fused_kernels != "auto":
@@ -231,6 +244,7 @@ class Optimiser:
                              "only takes 'auto' (kernel K2 on CUDA)")
         self.para = para
         self.device = resolve_device(device)
+        self.mesh = make_mesh() if mesh is None else mesh
         self.draws = draws if draws is not None else Draws(para.seed,
                                                            self.device)
         self.sym = Symmetry(para.sym)
@@ -262,15 +276,39 @@ class Optimiser:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @property
+    def rows(self):
+        """This rank's slots of the (2, S) half-plane layout, a slice of S;
+        every per-image tensor holds these rows only."""
+        return distributed.local_plane_rows(self.s_slots, self.mesh.world,
+                                            self.mesh.rank)
+
+    def _local(self, a):
+        """A global host (2, S, ...) layout array -> this rank's rows."""
+        return a[:, self.rows]
+
+    @property
+    def _draws(self):
+        """``draws`` cut to this rank's rows (every rank draws the global
+        batch)."""
+        return RowDraws(self.draws, self.rows)
+
     # ------------------------------------------------------------------ data
 
     def set_data(self, imgs, ctf_params, group_ids=None, halves=None):
         """imgs: (N, n, n) real-space particle images (object at centre);
         ctf_params: dict of (N,) arrays (voltage, defocus_u, defocus_v,
         defocus_theta, cs, amp_contrast[, phase_shift]). Builds the
-        half-plane layout with the JAX package's seeded shuffle split."""
+        half-plane layout with the JAX package's seeded shuffle split and
+        keeps this rank's rows."""
         imgs = np.asarray(imgs, dtype=np.float32)
-        self.n_imgs = imgs.shape[0]
+        self._set_layout(imgs.shape[0], ctf_params, group_ids, halves)
+        self._set_images(imgs[self._local(self.plane_index)])
+
+    def _set_layout(self, n_imgs, ctf_params, group_ids, halves):
+        """The global half-plane layout of ``n_imgs`` images, and this
+        rank's CTF parameters and fresh per-image state."""
+        self.n_imgs = n_imgs
         if halves is None:
             perm = np.random.default_rng(self.para.seed).permutation(
                 self.n_imgs)
@@ -285,45 +323,63 @@ class Optimiser:
         for h in (0, 1):
             self.plane_index[h, :len(idx_h[h])] = idx_h[h]
             self.plane_valid[h, :len(idx_h[h])] = 1.0
+        if self.mesh.world > s:
+            raise ValueError(f"{self.mesh.world} ranks for {s} slots a half: "
+                             "run at most one rank a slot")
         gid = (np.zeros(self.n_imgs, np.int32) if group_ids is None
                else np.asarray(group_ids, np.int32))
         self.group_ids = gid
         self.n_groups = int(gid.max()) + 1
         self.groups_plane = gid[self.plane_index]
-        self.ctf_params = {
-            k: self._t(np.asarray(v, np.float32)[self.plane_index])
-            for k, v in ctf_params.items()}
+        loc = self._local(self.plane_index)
+        s_loc = loc.shape[1]
+        self.ctf_params = {k: self._t(np.asarray(v, np.float32)[loc])
+                           for k, v in ctf_params.items()}
         if "phase_shift" not in self.ctf_params:
             self.ctf_params["phase_shift"] = torch.zeros(
-                (2, s), dtype=real_dtype, device=self.device)
-        imgs_p = self._t(imgs[self.plane_index])  # (2, S, n, n)
-        imgs_norm, alpha = self._preprocess(imgs_p)
+                (2, s_loc), dtype=real_dtype, device=self.device)
+        self.offsets = torch.zeros((2, s_loc, 2), dtype=real_dtype,
+                                   device=self.device)
+        self.scale = np.ones(self.n_groups, np.float32)
+        self.par = particle.make_state((2, s_loc), self.para.m_l_r,
+                                       self.para.m_l_t, self.para.m_l_d,
+                                       device=self.device)
+        self.scores = torch.ones((2, s_loc), dtype=real_dtype,
+                                 device=self.device)
+
+    def _set_images(self, imgs_plane):
+        """This rank's (2, s_loc, n, n) images -> the preprocessed unmasked
+        and masked spectra."""
+        imgs_norm, alpha = self._preprocess(self._t(imgs_plane))
         self.imgs_ft_ori = fft_ops.fft2_center(imgs_norm)
         self.imgs_ft = (fft_ops.fft2_center(imgs_norm * alpha)
                         if self.para.zero_mask else self.imgs_ft_ori)
-        self.offsets = torch.zeros((2, s, 2), dtype=real_dtype,
-                                   device=self.device)
-        self.scale = np.ones(self.n_groups, np.float32)
-        self.par = particle.make_state((2, s), self.para.m_l_r,
-                                       self.para.m_l_t, self.para.m_l_d,
-                                       device=self.device)
-        self.scores = torch.ones((2, s), dtype=real_dtype, device=self.device)
 
     def set_data_from_dataset(self, ds):
-        """Data from a ``data.ParticleDataset``: every image read from its
-        stack, the dataset's seeded halves, 0-based groups and CTF
-        columns through ``set_data``; the particle and micrograph paths
-        and the micrograph coordinates carried into the .thu output."""
-        self.set_data(ds.load_images(), ds.ctf_params(),
-                      group_ids=ds.group_ids, halves=ds.halves)
+        """Data from a ``data.ParticleDataset``: the dataset's seeded
+        halves, 0-based groups and CTF columns as in ``set_data``, and the
+        images of this rank's slots read from their stacks (each rank reads
+        its own; an empty slot holds zeros, as in the JAX package); the
+        particle and micrograph paths and the micrograph coordinates carried
+        into the .thu output."""
+        self._set_layout(ds.n, ds.ctf_params(), ds.group_ids, ds.halves)
+        loc = self._local(self.plane_index)
+        valid = self._local(self.plane_valid) > 0
+        ids = np.unique(loc[valid])
+        imgs = np.zeros(loc.shape + (self.n, self.n), np.float32)
+        if ids.size:
+            imgs[valid] = ds.load_images(ids)[np.searchsorted(ids,
+                                                              loc[valid])]
+        self._set_images(imgs)
         self.particle_paths = ds.table.particle_paths
         self.micrograph_paths = ds.table.micrograph_paths
         self.coords_xy = np.asarray(ds.table.values[
             :, (ThuColumns.COORDINATE_X, ThuColumns.COORDINATE_Y)],
             np.float64)
         get_logger("INIT").info(
-            "dataset: %d particles, %d groups, %d slots/half",
-            self.n_imgs, self.n_groups, self.s_slots)
+            "dataset: %d particles, %d groups, %d slots/half; this host "
+            "loaded %d local slices", self.n_imgs, self.n_groups,
+            self.s_slots, ids.size)
 
     def load_poses(self, quats, trans, defocus=None, classes=None,
                    k123=None, std_t=None):
@@ -332,8 +388,10 @@ class Optimiser:
         pose, concentrations k1..k3 (default 0.01) clamped to >= 1e-5 and
         translation stddevs (default 1) to >= 0.1. Image-order arrays; in
         2D a stored rotation about z, (cos(phi/2), 0, 0, sin(phi/2)),
-        becomes the support convention (cos phi, sin phi, 0, 0)."""
-        plane = lambda a, dt=np.float32: np.asarray(a, dt)[self.plane_index]
+        becomes the support convention (cos phi, sin phi, 0, 0). Each rank
+        keeps its own rows."""
+        loc = self._local(self.plane_index)
+        plane = lambda a, dt=np.float32: np.asarray(a, dt)[loc]
         q = plane(quats)
         if self.dims == 2:
             phi = 2.0 * np.arctan2(q[..., 3], q[..., 0])
@@ -347,7 +405,7 @@ class Optimiser:
         par["topR"], par["topT"] = q, t
         if classes is not None:
             par["c"] = self._t(plane(classes, np.int32))
-        shape = self.plane_index.shape
+        shape = loc.shape
         for i, name in enumerate(("k1", "k2", "k3")):
             v = (plane(k123[i]) if k123 is not None
                  else np.full(shape, 0.01, np.float32))
@@ -363,9 +421,10 @@ class Optimiser:
         self.par = par
 
     def _from_plane(self, plane_arr):
-        """(2, S, ...) -> (N, ...) NumPy in image order."""
-        a = plane_arr.detach().cpu().numpy() if torch.is_tensor(plane_arr) \
-            else np.asarray(plane_arr)
+        """This rank's (2, s_loc, ...) rows -> (N, ...) NumPy of every image
+        in image order: a collective, which every rank must reach."""
+        a = distributed.gather_plane(torch.as_tensor(plane_arr),
+                                     self.s_slots).detach().cpu().numpy()
         a = a.reshape((-1,) + a.shape[2:])
         sel = self.plane_valid.ravel() > 0
         out = np.zeros((self.n_imgs,) + a.shape[1:], a.dtype)
@@ -437,14 +496,15 @@ class Optimiser:
         """Initial per-group noise spectra: shell power / 2."""
         n = self.n
         ps = spectrum.power_spectrum(self.imgs_ft, n // 2, 2)  # (2, S, sh)
-        w = self._t(self.plane_valid)
-        g = self._t(self.groups_plane).long().reshape(-1)
+        w = self._t(self._local(self.plane_valid))
+        g = self._t(self._local(self.groups_plane)).long().reshape(-1)
         sums = torch.zeros((self.n_groups, n // 2), dtype=torch.float32,
                            device=self.device).index_add_(
             0, g, (ps * w[..., None]).reshape(-1, n // 2))
         cnt = torch.zeros(self.n_groups, dtype=torch.float32,
                           device=self.device).index_add_(0, g, w.reshape(-1))
-        sums, cnt = sums.cpu().numpy(), cnt.cpu().numpy()
+        sums = distributed.all_reduce_sum(sums).cpu().numpy()
+        cnt = distributed.all_reduce_sum(cnt).cpu().numpy()
         sig = sums / np.maximum(cnt[:, None], 1.0)
         sig = np.where(cnt[:, None] > 0, sig, 1.0)
         self.sig = self._t(np.maximum(sig / 2, 1e-10).astype(np.float32))
@@ -477,7 +537,7 @@ class Optimiser:
 
     def _chunk(self):
         b = self.para.image_batch or self.DEFAULT_IMAGE_BATCH
-        return max(1, min(b, self.s_slots))
+        return max(1, min(b, self.rows.stop - self.rows.start))
 
     def _bricks(self, r_band=None):
         """(2, K, ...) Hermitian half-space brick tables, cached per
@@ -517,7 +577,7 @@ class Optimiser:
             cp["voltage"], cp["defocus_u"], cp["defocus_v"],
             cp["defocus_theta"], cp["cs"], cp["amp_contrast"],
             cp["phase_shift"], defocus_factor=dfac)
-        g = self._t(self.groups_plane).long()
+        g = self._t(self._local(self.groups_plane)).long()
         sig_px = self.sig[g[..., None], self._t(ring.sig).long()[None, None]]
         return dat, c, likelihood.sigma_reciprocal(sig_px)
 
@@ -553,7 +613,7 @@ class Optimiser:
         tra = translation_phase(col, row, trans[:, 0], trans[:, 1], self.n)
         bricks = self._bricks()
         dat, c, sig_rcp = self._plane_ring_data(ring)
-        gumbel, u0_r, u0_t = self.draws.scan_seed(
+        gumbel, u0_r, u0_t = self._draws.scan_seed(
             self.iteration, (2, self.s_slots), para.k)
         st, _ = engine.scan_init(
             bricks, rots, quats, tra, trans, col, row, pmask, dat, c,
@@ -579,7 +639,7 @@ class Optimiser:
         ctf_search = self.ladder.search_type == SEARCH_TYPE_CTF
         bricks = self._bricks()
         dat, c, sig_rcp = self._plane_ring_data(ring)
-        draw = self.draws.phase_draws(
+        draw = self._draws.phase_draws(
             self.iteration, (2, self.s_slots), para.m_l_r, para.m_l_t,
             mode=para.mode, n_d=self.par["d"].shape[2] if ctf_search else 0)
         st, nph = engine.local_search(
@@ -591,10 +651,11 @@ class Optimiser:
         self.phase_counts = nph
         self.par = st
         self.scores = particle.compress_r(st)
-        w = self._t(self.plane_valid)
+        w = self._t(self._local(self.plane_valid))
         denom = max(float(self.plane_valid.sum()), 1.0)
-        return (float(torch.sum(st["s0"] * w)) / denom,
-                float(torch.sum(st["s1"] * w)) / denom)
+        tv = distributed.all_reduce_sum(torch.stack([
+            torch.sum(st["s0"] * w), torch.sum(st["s1"] * w)])).tolist()
+        return tv[0] / denom, tv[1] / denom
 
     # ---------------------------------------------------------- maximization
 
@@ -609,12 +670,14 @@ class Optimiser:
         state = {k: self.par[k] for k in ("topR", "topT", "c")}
         sig, cnt, xa, aa, norms, oris = engine.residual_stats(
             bricks, col, row, self._t(ring.sig), pmask, dat, dat_ori, c,
-            state, self._t(self.groups_plane), self._t(self.plane_valid),
-            self.offsets, pf=self.para.pf, n=self.n, n_groups=self.n_groups,
+            state, self._t(self._local(self.groups_plane)),
+            self._t(self._local(self.plane_valid)), self.offsets,
+            pf=self.para.pf, n=self.n, n_groups=self.n_groups,
             n_shell=self.n // 2)
         shell_n = np.zeros(self.n // 2, np.float64)
         np.add.at(shell_n, np.asarray(ring.sig)[np.asarray(ring.mask) > 0], 1)
-        f64 = lambda x: x.cpu().numpy().astype(np.float64)
+        f64 = lambda x: distributed.all_reduce_sum(x).cpu().numpy().astype(
+            np.float64)
         return (f64(sig), f64(cnt), f64(xa), f64(aa), norms, shell_n, oris)
 
     def maximization_sigma(self, stats=None, sig_override=None):
@@ -679,16 +742,15 @@ class Optimiser:
         if init:
             s2 = self.s_slots
             if self.dims == 2:
-                phis = self.draws.scale_angles((2, s2))
+                phis = self._draws.scale_angles((2, s2))
                 z = torch.zeros_like(phis)
                 rand_q = torch.stack([torch.cos(phis), torch.sin(phis), z, z],
                                      -1)
             else:
-                rand_q = quat.normalize(self.draws.scale_quats((2, s2)))
+                rand_q = quat.normalize(self._draws.scale_quats((2, s2)))
             saved = {k: self.par[k] for k in ("topR", "topT")}
             self.par = {**self.par, "topR": rand_q,
-                        "topT": torch.zeros((2, s2, 2), dtype=real_dtype,
-                                            device=self.device)}
+                        "topT": torch.zeros_like(saved["topT"])}
             stats = self._residual_stats()
             self.par = {**self.par, **saved}
             scale = self.refresh_scale(group=False, stats=stats)
@@ -697,8 +759,8 @@ class Optimiser:
             self.log.info("init scale correction: refs *= %.4f", s)
         else:
             scale = self.refresh_scale(group=group)
-            s_img = self._t(scale)[self._t(self.groups_plane).long()][
-                ..., None, None]
+            s_img = self._t(scale)[self._t(self._local(
+                self.groups_plane)).long()][..., None, None]
             self.imgs_ft = self.imgs_ft / s_img
             self.imgs_ft_ori = self.imgs_ft_ori / s_img
             self.sig = self.sig / self._t(scale[:, None] ** 2)
@@ -709,7 +771,8 @@ class Optimiser:
         image residual power over [rL, rNorm) on the masked stack at the
         rank-1 pose; both stacks are rescaled by sqrt(median / norm_l).
         Returns the (2, S) factors (1 on invalid slots) for
-        engine.sigma_rescaled."""
+        engine.sigma_rescaled. The median is over every rank's valid
+        slots."""
         _, _, _, _, norms, _, _ = stats or self._residual_stats()
         fsc = getattr(self, "fsc", None)
         r_norm = self.ladder.r if fsc is None else min(
@@ -717,10 +780,12 @@ class Optimiser:
             spectrum.res_p(torch.as_tensor(fsc[0]), 0.75, r_low=1))
         hi = max(r_norm, self.r_low + 1)
         norm = torch.sum(norms[..., self.r_low:hi], dim=-1)
-        valid = self._t(self.plane_valid) > 0
+        valid = self._t(self._local(self.plane_valid)) > 0
         # the median of the valid slots, the mean of the two middle values
         # for an even count as in NumPy (torch.nanmedian takes the lower)
-        m = torch.nanquantile(torch.where(valid, norm, float("nan")), 0.5)
+        m = torch.nanquantile(torch.where(
+            self._t(self.plane_valid) > 0,
+            distributed.gather_plane(norm, self.s_slots), float("nan")), 0.5)
         fac = torch.sqrt(m / torch.clamp(norm, min=1e-30))
         fac = torch.where(valid, fac, torch.ones_like(fac))
         self.imgs_ft = self.imgs_ft * fac[..., None, None]
@@ -803,10 +868,10 @@ class Optimiser:
     def refresh_class_distr(self):
         """Class fractions over the valid images (Optimiser::
         refreshClassDistr, src/Optimiser.cpp:5484-5517), as NumPy (K,)."""
-        counts = torch.zeros(self.para.k, dtype=torch.float32,
-                             device=self.device).index_add_(
+        counts = distributed.all_reduce_sum(torch.zeros(
+            self.para.k, dtype=torch.float32, device=self.device).index_add_(
             0, self.par["c"].long().reshape(-1),
-            self._t(self.plane_valid).reshape(-1)).cpu().numpy()
+            self._t(self._local(self.plane_valid)).reshape(-1))).cpu().numpy()
         self.c_distr = counts / max(counts.sum(), 1)
         return self.c_distr
 
@@ -912,7 +977,13 @@ class Optimiser:
         ``avg=False`` keeps the halves independent (the final round,
         src/Optimiser.cpp:4124-4130); ``final`` also reconstructs each
         class's joined map from the two halves' summed accumulators with
-        this round's FSC (saveMapJoin, :8832) into ``joined_maps``."""
+        this round's FSC (saveMapJoin, :8832) into ``joined_maps``.
+
+        Across ranks the folded F/T and re-centring sums of each half are
+        summed after the insert (the JAX package's psum over the data
+        axis), the rest runs on every rank, and rank 0's references and FSC
+        replace the others' (float atomics can part ranks in the last bit,
+        and these steer the run)."""
         para = self.para
         dims, k_cls = self.dims, para.k
         r_u = self.ladder.r_u if r_u is None else r_u
@@ -923,10 +994,10 @@ class Optimiser:
                                           refined_defocus=True)
         n_draw = min(para.m_reco, para.m_l_r)
         scores = self.scores if para.par_gra else torch.ones_like(self.scores)
-        w_img = scores * self._t(self.plane_valid) / n_draw
+        w_img = scores * self._t(self._local(self.plane_valid)) / n_draw
         state = {k: self.par[k] for k in ("r", "t", "c")}
-        ri, ti = self.draws.insert(self.iteration, (2, self.s_slots), n_draw,
-                                   state["r"].shape[2], state["t"].shape[2])
+        ri, ti = self._draws.insert(self.iteration, (2, self.s_slots), n_draw,
+                                    state["r"].shape[2], state["t"].shape[2])
         if dims == 3 and self.sym.n_elements:
             if not hasattr(self, "_sym_split_cache"):
                 self._sym_split_cache = reconstructor.split_grid_exact(
@@ -948,11 +1019,12 @@ class Optimiser:
         kernel = self._insert_kernel()
 
         def insert(k_classes, st, w):
-            return engine.insert_fold_reduce(
+            out = engine.insert_fold_reduce(
                 col, row, pmask, dat, c, st, ri, ti, w, self.offsets,
                 pf=para.pf, n=self.n, mc=mc, chunk=self._chunk(),
                 k_classes=k_classes, mode=para.mode, insert_kernel=kernel,
                 blob_a=para.a, alpha=para.alpha)
+            return tuple(map(distributed.all_reduce_sum, out))
 
         width = 12 if dims == 2 else 24
         self.insert_fused = (k_cls > 1 and k_cls * mc ** dims * width * 4
@@ -1006,8 +1078,9 @@ class Optimiser:
             self.joined_maps = joined
         self.reco_timing = reco_t
         self._update_insert_offsets(np.stack(offs, axis=1))  # (2, K, 4)
-        self.fsc = np.stack(fscs)                            # (K, shells)
-        self.refs = torch.stack(new_refs, dim=1)             # (2, K, ...)
+        self.fsc = distributed.broadcast(
+            torch.as_tensor(np.stack(fscs))).numpy()         # (K, shells)
+        self.refs = distributed.broadcast(torch.stack(new_refs, dim=1))
 
     def _update_insert_offsets(self, offs):
         """prepareO (src/Reconstructor.cpp:1106-1128): symmetrise the
@@ -1063,10 +1136,13 @@ class Optimiser:
                 # stacks rescale per image; sigma is re-derived from the
                 # same pass's per-image ori shells
                 self.norm_fac = self.norm_correction(stats=stats)
-                self.maximization_sigma(
-                    stats=stats, sig_override=engine.sigma_rescaled(
-                        stats[6], self.norm_fac, self._t(self.groups_plane),
-                        self._t(self.plane_valid), n_groups=self.n_groups))
+                sig_sums = engine.sigma_rescaled(
+                    stats[6], self.norm_fac,
+                    self._t(self._local(self.groups_plane)),
+                    self._t(self._local(self.plane_valid)),
+                    n_groups=self.n_groups)
+                self.maximization_sigma(stats=stats, sig_override=tuple(
+                    map(distributed.all_reduce_sum, sig_sums)))
             else:
                 self.maximization_sigma(stats=stats)
             if is_global and para.group_scl and self.iteration != 0:
@@ -1101,18 +1177,22 @@ class Optimiser:
         if crit == "fsc_area" and has_fsc:
             self.ladder.record_fsc_area(float(self.fsc[:, :max(res, 1)].sum()))
         self.ladder.elevate(res)
-        st = self.ladder.transition(para.l_search, para.c_search)
+        self.ladder.transition(para.l_search, para.c_search)
+        self.ladder = distributed.broadcast_object(self.ladder)
+        st = self.ladder.search_type
         if st == SEARCH_TYPE_CTF and search_type_in != SEARCH_TYPE_CTF:
             self._seed_defocus_search()
         self.iteration += 1
+        self._check_ranks_agree()
         mark("post")
         nph = getattr(self, "phase_counts", None)
         if nph is not None:
-            w = self._t(self.plane_valid)
-            nph_stats = (float(torch.sum(nph * w) / torch.clamp(
-                torch.sum(w), min=1.0)),
-                int(torch.amax(torch.where(w > 0, nph, torch.zeros_like(
-                    nph)))))
+            w = self._t(self._local(self.plane_valid))
+            nph_sum = distributed.all_reduce_sum(torch.sum(nph * w))
+            nph_max = distributed.all_reduce_max(torch.amax(torch.where(
+                w > 0, nph, torch.zeros_like(nph))))
+            nph_stats = (float(nph_sum) / max(float(self.plane_valid.sum()),
+                                               1.0), int(nph_max))
         rec = {
             "iter": self.iteration, "r": self.ladder.r, "res_shell": res,
             "res_a": float(self.n * para.pixel_size / max(res, 1)),
@@ -1133,14 +1213,38 @@ class Optimiser:
     def _seed_defocus_search(self):
         """Entering CTF search: spread each image's defocus support around
         its current factor with stddev ``ctf_refine_s`` (Particle::initD),
-        drawn with NumPy from ``seed + 77`` as the JAX package draws it."""
+        drawn with NumPy from ``seed + 77`` as the JAX package draws it (the
+        global (2, S, nD) batch on every rank, cut to its rows)."""
         s = self.para.ctf_refine_s
         rng = np.random.default_rng(self.para.seed + 77)
         d = self.par["d"]
         d0 = self.par["topD"].cpu().numpy()[..., None]
-        self.par["d"] = self._t((d0 + rng.normal(0, s, tuple(d.shape)))
-                                .astype(np.float32))
+        eps = self._local(rng.normal(0, s, (2, self.s_slots, d.shape[2])))
+        self.par["d"] = self._t((d0 + eps).astype(np.float32))
         self.par["sD"] = torch.full_like(self.par["sD"], s)
+
+    def _check_ranks_agree(self):
+        """After a round, every rank must hold rank 0's steering state: a
+        digest of the references, FSC, ladder, sigma, scales and insert
+        offsets is gathered and compared, and a mismatch raises (a rank
+        that went its own way would otherwise hang the others at their
+        next collective)."""
+        if self.mesh.world == 1:
+            return
+        h = hashlib.sha256(repr((self.iteration, dataclasses.astuple(
+            self.ladder))).encode())
+        for x in (self.refs, self.sig, getattr(self, "fsc", None),
+                  self.scale, getattr(self, "insert_offsets", None)):
+            if x is not None:
+                h.update(np.ascontiguousarray(
+                    x.detach().cpu().numpy() if torch.is_tensor(x)
+                    else x).tobytes())
+        digests = distributed.all_gather_object(h.hexdigest())
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"round {self.iteration}: the ranks' states "
+                               f"differ (digests {digests})")
+        self.log.info("round %d: the %d ranks agree (state digest %s)",
+                      self.iteration, self.mesh.world, digests[0][:16])
 
     def run(self, max_iter=None, finalise=True):
         """Rounds until ``max_iter`` (default ``para.iter_max``) or STOP,
@@ -1220,16 +1324,29 @@ class Optimiser:
 
     SUBTRACT_BATCH = 64  # images projected at a time by save_subtract
 
+    def _rank_images(self, index):
+        """Rank ``index``'s images in ascending global index, and their
+        (half, slot) positions within that rank's rows."""
+        rows = distributed.local_plane_rows(self.s_slots, self.mesh.world,
+                                            index)
+        pi = self.plane_index[:, rows]
+        h, sl = np.nonzero(self.plane_valid[:, rows] > 0)
+        order = np.argsort(pi[h, sl], kind="stable")
+        return pi[h, sl][order], (h[order], sl[order])
+
     def save_subtract(self):
-        """Write Subtract_Rank_000000.mrcs and Meta_Subtract.thu
+        """Write Subtract_Rank_{rank:06d}.mrcs and Meta_Subtract.thu
         (saveSubtract, src/Optimiser.cpp:8418-8530): for the identity and
         then every symmetry element g, image by image, imgOri - CTF *
         proj(class reference at g^T R), translated by -(tran - offset) -
         (g^T R)^T c, c the region centre, so that the region lands at the
-        box centre. The stack is g-major, slice gi N + l + 1 holding image
-        l; Meta_Subtract.thu has one row per (image, g), image-major, with
-        the g-rotated pose and the translations moved into the subtracted
-        frame (saveDatabase(subtract=true), :8296-8361)."""
+        box centre. Each rank writes its own images, in ascending global
+        index j = 0 .. n_rank - 1, g-major: slice gi n_rank + j + 1 (one
+        rank: slice gi N + l + 1 holds image l). Rank 0 writes
+        Meta_Subtract.thu: one row per (image, g), image-major, pointing
+        into its rank's file, with the g-rotated pose and the translations
+        moved into the subtracted frame (saveDatabase(subtract=true),
+        :8296-8361)."""
         para, n, dev = self.para, self.n, self.device
         out = para.output_directory or "./"
         os.makedirs(out, exist_ok=True)
@@ -1246,17 +1363,18 @@ class Optimiser:
             colf, rowf, n, para.pixel_size, cp["voltage"], cp["defocus_u"],
             cp["defocus_v"], cp["defocus_theta"], cp["cs"],
             cp["amp_contrast"], cp["phase_shift"],
-            defocus_factor=self.par["topD"]).reshape(2, self.s_slots, n, n)
+            defocus_factor=self.par["topD"]).reshape(2, -1, n, n)
         t_rel = self.par["topT"] - self.offsets                # (2, S, 2)
         cls = self.par["c"]
         rot_b = quat.rotate3d(self.par["topR"])                # (2, S, 3, 3)
         rc = self._t(self.region_centre.astype(np.float32))
+        h_loc, s_loc = (torch.as_tensor(x, device=dev)
+                        for x in self._rank_images(self.mesh.rank)[1])
         stacks, q_rows = [], []
         for r_g in sym_rots:
             rot_c = torch.einsum("ij,hsjk->hsik", self._t(r_g.T), rot_b)
             q_rows.append(self._from_plane(quat.quat_from_matrix(rot_c)))
-            pri = torch.zeros((2, self.s_slots, n, n), dtype=torch.complex64,
-                              device=dev)
+            pri = torch.zeros_like(self.imgs_ft_ori)
             for k in range(para.k):
                 idx = torch.nonzero(cls == k)
                 for s0 in range(0, idx.shape[0], self.SUBTRACT_BATCH):
@@ -1269,10 +1387,10 @@ class Optimiser:
             reg = torch.einsum("hsji,j->hsi", rot_c, rc)
             diff = translate_ft(diff, -t_rel[..., 0] - reg[..., 0],
                                 -t_rel[..., 1] - reg[..., 1])
-            stacks.append(self._from_plane(
-                fft_ops.ifft2_center(diff).real.float()))
+            stacks.append(fft_ops.ifft2_center(diff).real.float()[
+                h_loc, s_loc].cpu().numpy())
             del pri, diff
-        write_mrc(f"{prefix}Subtract_Rank_000000.mrcs",
+        write_mrc(f"{prefix}Subtract_Rank_{self.mesh.rank:06d}.mrcs",
                   np.concatenate(stacks, axis=0), voxel_size=para.pixel_size)
 
         # the particle translations move into the subtracted frame
@@ -1283,11 +1401,23 @@ class Optimiser:
         rep = lambda a: np.repeat(np.asarray(a), g_all, axis=0)
         q_all = np.stack(q_rows, axis=1).reshape(n_imgs * g_all, 4)
         cpf = {k: rep(self._from_plane(v)) for k, v in cp.items()}
+        scores = rep(self._from_plane(self.scores))
+        if not distributed.is_main():
+            return
+        # image -> (its rank, its place j in that rank's file)
+        owner = np.zeros((n_imgs, 2), np.int64)
+        count = []
+        for r in range(self.mesh.world):
+            ids = self._rank_images(r)[0]
+            owner[ids] = np.stack([np.full(ids.size, r),
+                                   np.arange(ids.size)], axis=1)
+            count.append(ids.size)
         micros = getattr(self, "micrograph_paths", ["none"] * n_imgs)
         table = make_table(
             n_imgs * g_all,
-            particle_paths=[f"{gi * n_imgs + l + 1}@Subtract_Rank_000000.mrcs"
-                            for l in range(n_imgs) for gi in range(g_all)],
+            particle_paths=[
+                f"{gi * count[r] + j + 1}@Subtract_Rank_{r:06d}.mrcs"
+                for r, j in owner for gi in range(g_all)],
             micrograph_paths=[m for m in micros for _ in range(g_all)],
             voltage=cpf["voltage"], defocus_u=cpf["defocus_u"],
             defocus_v=cpf["defocus_v"], defocus_theta=cpf["defocus_theta"],
@@ -1301,8 +1431,7 @@ class Optimiser:
             std_translation_x=rep(flat["s0"]),
             std_translation_y=rep(flat["s1"]),
             defocus_factor=rep(flat["topD"]),
-            std_defocus_factor=rep(flat["sD"]),
-            score=rep(self._from_plane(self.scores)))
+            std_defocus_factor=rep(flat["sD"]), score=scores)
         write_thu(f"{prefix}Meta_Subtract.thu", table)
 
     # -------------------------------------------------------------- output
@@ -1352,13 +1481,18 @@ class Optimiser:
         Reference_{tag}.mrcs) and, when final, each class's joined map
         Reference_{k}_Final.mrc; FSC_, Class_Info_ and, per round, Sig_,
         Tau_ and Timing_{tag}.txt; Meta_{tag}.thu. ``tag`` is Final or
-        Round_{iteration:03d}."""
+        Round_{iteration:03d}. Rank 0 writes; every rank joins the
+        collectives the files need."""
         para = self.para
         out = para.output_directory or "./"
         prefix = os.path.join(out, para.dst_prefix + para.output_file_prefix)
         tag = "Final" if final else f"Round_{self.iteration:03d}"
         has_fsc = hasattr(self, "fsc")
         distr = self.refresh_class_distr() if has_fsc else None
+        table = (self._build_thu_table()
+                 if para.save_thu_each_iter or final else None)
+        if not distributed.is_main():
+            return
         os.makedirs(out, exist_ok=True)
         host = lambda x: x.detach().cpu().numpy()
         if para.save_ref_each_iter or final:
@@ -1421,8 +1555,8 @@ class Optimiser:
                     f.write(f"{'n_phase_mean':24s} {rec['n_phase'][0]:10.2f}"
                             "\n")
                     f.write(f"{'n_phase_max':24s} {rec['n_phase'][1]:10d}\n")
-        if para.save_thu_each_iter or final:
-            write_thu(f"{prefix}Meta_{tag}.thu", self._build_thu_table())
+        if table is not None:
+            write_thu(f"{prefix}Meta_{tag}.thu", table)
 
     def _refresh_rotation_change(self):
         """refreshRotationChange (src/Optimiser.cpp:5386-5482):

@@ -19,7 +19,7 @@ import torch
 
 from ..dtypes import real_dtype
 from ..geom import quat
-from ..geom.directional import (acg_mean, infer_acg, sample_acg_k123,
+from ..geom.directional import (infer_acg, infer_acg_mean, sample_acg_k123,
                                 sample_vms)
 from ..geom.symmetry import symmetry_counterpart
 
@@ -91,6 +91,13 @@ def systematic_resample(w, points, n_out, u0):
     return _take(points, idx)
 
 
+def resample_rotations(w, r, n_out, u0):
+    """Systematic resampling of rotation supports (the JAX package's
+    ``resample_rotations``): w (B, n_in), r (B, n_in, 4), u0 (B,) the
+    per-image uniforms the JAX function draws from its keys."""
+    return systematic_resample(w, r, n_out, u0)
+
+
 def keep_half_height_peak(u, peak_factor):
     """u <- max(0, u - pf * max(u)) along the last axis."""
     hh = torch.amax(u, dim=-1, keepdim=True) * peak_factor
@@ -133,7 +140,7 @@ def cal_vari_r(r, anchor_idx=None, sym_quats=None):
             and anchor_idx is not None:
         anchor = _take(r, anchor_idx[..., None].long())[..., 0, :]
         r = symmetrise_r(r, sym_quats, anchor)
-    mean = acg_mean(r)
+    mean = infer_acg_mean(r)
     r_c = quat.quat_mul(quat.quat_conj(mean)[..., None, :], r)
     a2 = infer_acg(r_c)
     d0 = torch.clamp(a2[..., 0, 0], min=1e-30)
@@ -162,7 +169,7 @@ def perturb_r(r, k1, k2, k3, pf, normals, sym_quats=None):
     """Perturb support rotations in the tangent frame of their ACG mean by
     ACG(pf^2 min(1, k)) samples from ``normals`` (..., nR, 4), then
     re-symmetrise about the mean (Particle.cpp:1180-1240)."""
-    mean = acg_mean(r)
+    mean = infer_acg_mean(r)
     kk = [(pf ** 2) * torch.clamp(k, max=PERTURB_K_MAX) for k in (k1, k2, k3)]
     d = sample_acg_k123(kk[0], kk[1], kk[2], normals)
     mean_e = mean[..., None, :]

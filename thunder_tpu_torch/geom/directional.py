@@ -3,9 +3,11 @@
 batched over leading dims:
 
 - Angular Central Gaussian (ACG) over unit quaternions (3D rotations):
-  ``sample_acg`` maps caller-drawn 4D normals through chol(Sigma),
+  ``pdf_acg``; ``sample_acg`` (and ``sample_acg_k0k1`` / ``_k123`` for
+  diagonal scatters) maps caller-drawn 4D normals through chol(Sigma);
   ``infer_acg`` is the weighted Tyler fixed-point iteration with a fixed
-  iteration count;
+  iteration count, reduced by ``infer_acg_k0k1`` / ``infer_acg_k`` /
+  ``infer_acg_k123`` / ``infer_acg_mean``;
 - von Mises (VMS) on the circle (2D in-plane rotations): ``sample_vms`` is
   the Best-Fisher sampler as VMS_PROPOSAL_ROUNDS fixed proposal rounds on
   caller-drawn uniforms, ``infer_vms`` the mean-resultant inference.
@@ -19,12 +21,26 @@ ACG_FIXED_POINT_ITERS = 30
 VMS_PROPOSAL_ROUNDS = 8
 
 
+def pdf_acg(x, sig):
+    """ACG density on S^3. x: (..., 4); sig: (..., 4, 4)."""
+    u = torch.einsum("...i,...ij,...j->...", x, torch.linalg.inv(sig), x)
+    area = 2 * math.pi ** 2  # surface area of S^3
+    return 1.0 / (area * torch.sqrt(torch.linalg.det(sig))) * u ** -2.0
+
+
 def sample_acg(sig, normals):
     """q = L v / |L v| with L = chol(sig). sig: (..., 4, 4); normals
     (..., n, 4) standard normals -> (..., n, 4)."""
     ell = torch.linalg.cholesky(sig)
     q = normals @ ell.transpose(-1, -2)
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def sample_acg_k0k1(k0, k1, normals):
+    """ACG(diag(k0, k1, k1, k1)) samples from normals (n, 4) -> (n, 4)."""
+    sig = torch.diag(torch.stack([torch.as_tensor(k, dtype=normals.dtype)
+                                  for k in (k0, k1, k1, k1)]))
+    return sample_acg(sig, normals)
 
 
 def sample_acg_k123(k1, k2, k3, normals):
@@ -63,7 +79,28 @@ def infer_acg(q, w=None, n_iter=ACG_FIXED_POINT_ITERS):
     return a
 
 
-def acg_mean(q, w=None):
+def infer_acg_k0k1(q, w=None):
+    """The scatter's two largest eigenvalues (k0, k1) (DirectionalStat.cpp:
+    146-166). q: (..., n, 4) -> two (...,)."""
+    ev = torch.linalg.eigvalsh(infer_acg(q, w))  # ascending
+    return ev[..., -1], ev[..., -2]
+
+
+def infer_acg_k(q, w=None):
+    """k1 / k0 of ``infer_acg_k0k1``."""
+    k0, k1 = infer_acg_k0k1(q, w)
+    return k1 / torch.clamp(k0, min=1e-30)
+
+
+def infer_acg_k123(q, w=None):
+    """The scatter's diagonal ratios A11/A00, A22/A00, A33/A00
+    (DirectionalStat.cpp:181-216)."""
+    a = infer_acg(q, w)
+    d = torch.clamp(a[..., 0, 0], min=1e-30)
+    return a[..., 1, 1] / d, a[..., 2, 2] / d, a[..., 3, 3] / d
+
+
+def infer_acg_mean(q, w=None):
     """Principal eigenvector of the ACG scatter (DirectionalStat.cpp:
     218-252), unit-normalised. q: (..., n, 4) -> (..., 4). The sign is
     arbitrary; every caller uses it as a rotation, where q and -q agree."""

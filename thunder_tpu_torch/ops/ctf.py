@@ -11,6 +11,19 @@ def wavelength(voltage):
     return 12.2643247 / torch.sqrt(voltage * (1 + voltage * 0.978466e-6))
 
 
+def ctf_1d(f, voltage, defocus, cs, amp_contrast, phase_shift=0.0):
+    """Radial CTF at frequencies f (1/angstrom), no astigmatism
+    (src/CTF.cpp:11-29); the parameters broadcast against f."""
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=f.device)
+    voltage, defocus, cs, amp_contrast, phase_shift = map(
+        t, (voltage, defocus, cs, amp_contrast, phase_shift))
+    lam = wavelength(voltage)
+    chi = (math.pi * lam * defocus * f ** 2
+           + math.pi / 2 * cs * lam ** 3 * f ** 4 - phase_shift)
+    return (-torch.sqrt(1 - amp_contrast ** 2) * torch.sin(chi)
+            + amp_contrast * torch.cos(chi))
+
+
 def ctf_pixels(col_freq, row_freq, n, pixel_size, voltage, defocus_u,
                defocus_v, defocus_theta, cs, amp_contrast, phase_shift,
                defocus_factor=1.0):

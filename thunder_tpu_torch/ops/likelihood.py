@@ -38,6 +38,19 @@ def sigma_reciprocal(sig):
     return -0.5 / torch.clamp(sig, min=1e-30)
 
 
+def log_likelihood_pose(dat, ctf, sig_rcp, pri, pixel_mask=None):
+    """Direct (unfactored) logL of explicit poses: dat/ctf/sig_rcp (B, P);
+    pri (B, P) or (B, M, P) predicted slices, already translated. Returns
+    (B,) or (B, M)."""
+    if pri.ndim == 3:
+        dat, ctf, sig_rcp = dat[:, None], ctf[:, None], sig_rcp[:, None]
+    resid = dat - ctf * pri
+    val = (resid.real ** 2 + resid.imag ** 2) * sig_rcp
+    if pixel_mask is not None:
+        val = val * pixel_mask
+    return torch.sum(val, dim=-1)
+
+
 def _q_e(dat, ctf, sig_rcp, pixel_mask):
     pm = 1.0 if pixel_mask is None else pixel_mask
     q = (-2.0 * sig_rcp * ctf * pm) * torch.conj(dat)

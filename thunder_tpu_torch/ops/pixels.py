@@ -95,6 +95,33 @@ def pixel_ring(size, r_low, r_high, bucket=PIXEL_BUCKET):
     )
 
 
+def scatter_pixels(values, ring, n, hermitian=True):
+    """Ring pixel values (..., P) back into centred (..., n, n) spectra,
+    each pixel also mirrored to its Hermitian conjugate when asked (the
+    ring covers col >= 0 only); the DC pixel is written once, and a mirror
+    that falls outside the box (row -n/2) is dropped."""
+    import torch
+
+    dev = values.device
+    col = torch.as_tensor(ring.col, device=dev).long()
+    row = torch.as_tensor(ring.row, device=dev).long()
+    mask = torch.as_tensor(ring.mask, device=dev).to(values.real.dtype)
+    values = values * mask
+    out = torch.zeros(values.shape[:-1] + (n * n,), dtype=values.dtype,
+                      device=dev)
+
+    def add(r, c, v):
+        keep = (r >= 0) & (r < n) & (c >= 0) & (c < n)
+        out.index_add_(-1, (r * n + c)[keep], v[..., keep])
+
+    add(row + n // 2, col + n // 2, values)
+    if hermitian:
+        self_conj = (col == 0) & (row == 0)
+        add(n // 2 - row, n // 2 - col,
+            torch.where(self_conj, 0.0, mask) * torch.conj(values))
+    return out.reshape(values.shape[:-1] + (n, n))
+
+
 def gather_pixels(ft_centered, ring):
     """Gather ring pixels from centered spectra (..., n, n) -> (..., P)."""
     import torch

@@ -2,9 +2,11 @@
 engine``).
 
 The JAX engine runs each stage as a ``shard_map`` over a (half, data)
-mesh. On one GPU the half axis is a leading dimension of size 2 of every
-per-image tensor — (2, S, ...), plane 0 = hemisphere A, plane 1 = B — and
-the data-axis ``psum`` disappears. Brick tables arrive as one (2, K, hz,
+mesh. Here the half axis is a leading dimension of size 2 of every
+per-image tensor — (2, S, ...), plane 0 = hemisphere A, plane 1 = B — on
+one device, and the data-axis ``psum`` of a multi-process run is the
+optimiser's all-reduce of what these functions return (each rank passes
+its own slots). Brick tables arrive as one (2, K, hz,
 mc, mc, C) stack of Hermitian half-space tables (3D) or (2, K, mc, mc, C)
 bilinear tables (2D classification); an image's class and half select its
 table inside one fused row gather.
@@ -39,6 +41,7 @@ from ..ops import ctf as ctf_ops
 from ..ops.insert import insert_update, new_table, rows_pad
 from ..ops.translate import translation_phase
 from ..core import particle, projector
+from . import distributed
 
 CTF_FIELDS = ("voltage", "defocus_u", "defocus_v", "defocus_theta", "cs",
               "amp_contrast", "phase_shift")
@@ -202,7 +205,10 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
     """Phase B: the particle-filter phase loop with the reference's
     termination rule (src/Optimiser.cpp:1138-1660), all images of both
     halves batched; finished images drop out of later phases (their state
-    is frozen, as in the JAX while_loop).
+    is frozen, as in the JAX while_loop). In a multi-process run the loop
+    ends when no rank has an active image, and every rank takes each
+    phase's draws, so that the ranks stay in step with one another and
+    with a single-process run.
 
     state: particle dict (2, S, ...); phase_draws(phase) -> dict with
     normals_r (2, S, nR, 4), normals_t (2, S, nT, 2), u0_r, u0_t (2, S),
@@ -233,7 +239,7 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
     phase = 0
     while phase < max_phase:
         act = torch.nonzero(~done)[:, 0]
-        if act.numel() == 0:
+        if int(distributed.all_reduce_sum(torch.tensor(act.numel()))) == 0:
             break
         dr = {k: fl(v) for k, v in phase_draws(phase).items()}
         factor = factor_l if phase == 0 else factor_s
