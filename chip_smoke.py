@@ -8,6 +8,7 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py --mp       # build + path G (phase 12) only
     python3 chip_smoke.py --mp --ranks 4  # path G as 4 ranks (4 cards: nccl)
     python3 chip_smoke.py --cli-study  # build + path D's run, 10 seeds
+    python3 chip_smoke.py --mp-study  # build + path G's run, 1 / 2 ranks
     python3 chip_smoke.py --data-study  # + the round on bench.py's data
     python3 chip_smoke.py --sym      # build + path E (phase 10) only
     python3 chip_smoke.py --mkb      # build + path F (phase 11) only
@@ -164,7 +165,12 @@ Phases, each printing a flushed progress line with elapsed seconds:
    every round, 2 halves x one 64-image chunk of its 128 images a call;
    only rank 0 printed the history and wrote the run's files (the file set
    of path D; each other rank's directory holds only its thunder.log); each rank
-   logged that the ranks' states agreed after every round; each round's
+   logged that the ranks' states agreed after every round, and each
+   round's record holds each rank's largest gap to rank 0 in the
+   references and FSC before rank 0 broadcasts them (MP_MAP_GAP_MAX) and
+   the summed insert table's total against the ranks' own (its rounding
+   bound, ranks x 2^-22: a rank missing from the sum reads far over it,
+   and the optimiser raises); each round's
    Meta_Round_*.thu poses under ROUND_ANG_MAX and its shell at
    ROUND_RES_MIN, Meta_Final.thu's shifts within path D's bars, the final
    shell at ROUND_RES_MIN and the final map's FSC against the phantom
@@ -206,6 +212,12 @@ same files once per seed of ``cli_study`` (a repeated seed differs only by
 the atomic order of the kernels' sums), without bounds, and prints each
 run's readings of what path D holds to bars and their ranges: the spread
 those bars are set from.
+
+``--mp-study`` runs, after the build and nothing else, path G's ``cli
+run`` on one dataset as one rank twice, one rank on the STAR round trip
+of its particles.thu (path D's input) and two ranks twice, without
+bounds, and prints each run's pose errors and how many of the images'
+round-1 poses each pair of runs shares.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Path C's, D's, E's and G's files go to temporary directories outside the
@@ -328,6 +340,13 @@ SUB_TRUTH_MAX = 1.05
 # reassembled subtraction to SUB_RESID_MAX
 MP_RANKS = 2
 MP_WALL_S = 120
+# each round's record of a multi-rank run carries each rank's largest gap
+# to rank 0 in the references and the FSC before rank 0 broadcasts them
+# (relative to their largest magnitude) and of the summed insert table's
+# weight total to the ranks' own totals gathered as numbers; the ranks
+# sum identical all-reduced tables, so only the card's float atomics part
+# their maps: MP_MAP_GAP_MAX on the maps, ranks x 2^-22 on the total
+MP_MAP_GAP_MAX = 1e-3
 # path E, general point-group symmetry: bench.py's Para with sym I on 256
 # images of an I-symmetric phantom (``sym_phantom`` of SYM_DESIGN: 30
 # small Gaussians within 0.25 n of the centre, each under the 60 matrices
@@ -2399,6 +2418,25 @@ def check_ranks(dev, label, reports, outs, scans, inserts, rounds, logs):
     return printed[0]
 
 
+def rank_gaps(label, hist, ranks):
+    """The largest of each round's ``rank_gaps`` over the rounds of the
+    printed history ``hist`` of a ``ranks``-rank run: the maps' (refs,
+    FSC) held to MP_MAP_GAP_MAX, the summed insert table's total to ranks
+    x 2^-22 (its rounding bound)."""
+    worst = {"refs": 0.0, "fsc": 0.0, "T": 0.0}
+    for h in hist:
+        got = h.get("rank_gaps")
+        if got is None or any(len(got[k]) != ranks for k in worst):
+            raise AssertionError(f"path G {label}: round {h['iter']} "
+                                 f"records no gaps of {ranks} ranks: {got}")
+        for k in worst:
+            worst[k] = max(worst[k], max(got[k]))
+    if (max(worst["refs"], worst["fsc"]) > MP_MAP_GAP_MAX
+            or worst["T"] > ranks * 2.0 ** -22):
+        raise AssertionError(f"path G {label}: the ranks' gaps {worst}")
+    return worst
+
+
 def reassembled_subtraction(out, b, n, ranks):
     """The ranks' Subtract_Rank_%06d.mrcs put back in the 1-rank order
     (g-major, image l of copy gi at gi b + l) through Meta_Subtract.thu's
@@ -2458,6 +2496,7 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
         hist = check_ranks(dev, "cli run", reps, outs, CLI_ITERS * calls,
                            (CLI_ITERS + 1) * calls, CLI_ITERS,
                            [f"{o}/thunder.log" for o in outs_r])
+        gaps = rank_gaps("cli run", hist, ranks)
         got = set(os.listdir(out))
         others = [sorted(os.listdir(o)) for o in outs_r[1:]]
         want = expected_files(range(1, CLI_ITERS + 1)) | {"thunder.log"}
@@ -2489,7 +2528,9 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
             f"{final_shell}; final map against the phantom: FSC min over "
             f"shells 1 .. {TOOL_RECON_SHELLS} {low.min():.4f}, first under "
             f"0.5 at {int(np.argmax(fsc[1:] < 0.5)) + 1}; only rank 0 wrote "
-            f"files; the ranks agreed after every round")
+            f"files; the ranks agreed after every round, their largest "
+            f"relative gaps {json.dumps(gaps)} (maps' bar {MP_MAP_GAP_MAX}, "
+            f"the table total's {ranks * 2.0 ** -22:.3g})")
         lo, hi = META_TRANS_SLOPE
         if not (max(errs) < ROUND_ANG_MAX and min(shells) >= ROUND_RES_MIN
                 and final_shell >= ROUND_RES_MIN and low.min() > 0.5
@@ -2507,8 +2548,9 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
                                  n=n), f)
         r_wall, r_reps, r_outs = launch_ranks(
             work, "resume", [["run", f"{work}/resume.json"]] * ranks)
-        check_ranks(dev, "resume + subtraction", r_reps, r_outs, 0,
-                    3 * calls, 1, [f"{resume}/thunder.log"] * ranks)
+        r_gaps = rank_gaps("resume", check_ranks(
+            dev, "resume + subtraction", r_reps, r_outs, 0, 3 * calls, 1,
+            [f"{resume}/thunder.log"] * ranks), ranks)
         r_err = float(np.median(pose_error_q(quats(read_thu(
             f"{resume}/Meta_Final.thu")), q_true)))
         sub, per_rank = reassembled_subtraction(resume, b, n, ranks)
@@ -2518,7 +2560,8 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
             f"(each rank {[round(r['wall'], 2) for r in r_reps]} s, peak "
             f"{[round(r['peak_gib'], 3) for r in r_reps]} GiB; {card}); "
             f"launches {[r['launches'] for r in r_reps]}; pose error "
-            f"{r_err:.3f} deg; the ranks' Subtract_Rank_*.mrcs hold "
+            f"{r_err:.3f} deg; the ranks' largest relative gaps "
+            f"{json.dumps(r_gaps)}; the ranks' Subtract_Rank_*.mrcs hold "
             f"{per_rank} images, Meta_Subtract.thu's paths reassemble each "
             f"of {4 * b} once; variance inside / outside the mask radius "
             f"{ratio:.4f} (bar {SUB_RESID_MAX})")
@@ -2528,6 +2571,62 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
         total = lambda rs: {k: sum(r["launches"][k] for r in rs)
                             for k in ("global_scan", "insert_update")}
         return {"mp_run": total(reps), "mp_resume_subtract": total(r_reps)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def mp_study(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
+    """``--mp-study``: path G's ``cli run`` on one dataset as one rank
+    twice (in this process), one rank on the STAR round trip of
+    particles.thu (path D's input), and ``ranks`` ranks twice, without
+    bounds; prints each run's median pose error per round and, for each
+    pair of runs, the share of images whose round-1 pose is the same
+    (within 1e-3 deg) and the median gap of the others: whether the rank
+    count moves round 1 further than one rank's runs differ."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from thunder_tpu_torch.io import ThuColumns, read_thu
+
+    work = tempfile.mkdtemp(prefix="thunder_mp_study_")
+    try:
+        _, truth = write_cli_dataset(dev, work, n, b)
+        cli_call(["thu2star", f"{work}/particles.thu",
+                  f"{work}/particles.star"])
+        cli_call(["star2thu", f"{work}/particles.star", f"{work}/rt.thu"])
+        runs = {}
+        for label, db, world in (("1 rank a", "particles", 1),
+                                 ("1 rank b", "particles", 1),
+                                 ("1 rank, STAR trip", "rt", 1),
+                                 (f"{ranks} ranks a", "particles", ranks),
+                                 (f"{ranks} ranks b", "particles", ranks)):
+            tag = label.replace(" ", "_").replace(",", "")
+            out, cfg = f"{work}/{tag}", f"{work}/{tag}.json"
+            with open(cfg, "w") as f:
+                json.dump(cli_config(work, f"{work}/{db}.thu", out, n=n), f)
+            if world == 1:
+                wall, _ = cli_call(["run", cfg])
+            else:
+                wall, _, _ = launch_ranks(work, tag, [
+                    ["run", cfg, "-o", out if r == 0 else f"{out}_rank{r}"]
+                    for r in range(world)])
+            runs[label] = [read_thu(f"{out}/Meta_Round_{i:03d}.thu").values[
+                :, ThuColumns.QUAT_0:ThuColumns.QUAT_3 + 1]
+                for i in range(1, CLI_ITERS + 1)]
+            errs = [float(np.median(pose_error_q(q, truth["q"])))
+                    for q in runs[label]]
+            log(f"mp study {label}: {wall:.2f} s; rounds' median pose error "
+                f"{[round(e, 4) for e in errs]} deg ({card})")
+        for x, y in itertools.combinations(runs, 2):
+            gap = pose_error_q(runs[x][0], runs[y][0])
+            same = gap < 1e-3
+            log(f"mp study round 1, {x} / {y}: {same.mean():.4f} of the "
+                f"images at the same pose; the others' median gap "
+                f"{float(np.median(gap[~same])) if (~same).any() else 0:.4f}"
+                f" deg")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3788,6 +3887,9 @@ def main(argv):
         return 0
     if "--cli-study" in argv:
         cli_study(dev)
+        return 0
+    if "--mp-study" in argv:
+        mp_study(dev, card)
         return 0
     if "--mp" in argv:
         ranks = (int(argv[argv.index("--ranks") + 1]) if "--ranks" in argv

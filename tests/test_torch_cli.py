@@ -32,7 +32,7 @@ from thunder_tpu.io.thu import make_table, write_thu
 from thunder_tpu_torch.cli.main import main as tcli
 from thunder_tpu_torch.core import postprocess as tpost
 
-from test_torch_support import free_port, rank_env, rel_err, run_ranks, tt
+from test_torch_support import rank_env, rel_err, run_ranks_on_a_port, tt
 
 torch.set_num_threads(1)
 
@@ -244,23 +244,29 @@ def test_run_joins_a_multi_process_launch(launcher, tmp_path):
     cfg = tmp_path / "one.json"
     cfg.write_text(json.dumps(_config(tmp_path, tmp_path / "out",
                                       tmp_path / "particles.thu", iters=1)))
-    port = free_port()
     if launcher == "jax":
-        envs = [rank_env(JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
-                         JAX_NUM_PROCESSES=2, JAX_PROCESS_ID=r)
-                for r in range(2)]
+        envs = lambda port: [rank_env(
+            JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+            JAX_NUM_PROCESSES=2, JAX_PROCESS_ID=r) for r in range(2)]
     else:
-        envs = [rank_env(MASTER_ADDR="localhost", MASTER_PORT=port,
-                         WORLD_SIZE=2, RANK=r, LOCAL_RANK=r,
-                         LOCAL_WORLD_SIZE=2) for r in range(2)]
+        envs = lambda port: [rank_env(
+            MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=2, RANK=r,
+            LOCAL_RANK=r, LOCAL_WORLD_SIZE=2) for r in range(2)]
     argv = [sys.executable, "-m", "thunder_tpu_torch.cli", "--cpu", "run",
             str(cfg)]
-    outs = run_ranks([argv, argv], envs, str(tmp_path), timeout=240)
+    outs = run_ranks_on_a_port([argv, argv], envs, str(tmp_path),
+                               timeout=240)
     for r, out in enumerate(outs):
-        assert f"rank {r} of 2: backend gloo, device cpu" in out, out
+        assert (f"rank {r} of 2: backend gloo, device cpu, mesh "
+                "{'half': 1, 'data': 2}") in out, out
     history = [json.loads(x) for x in outs[0].splitlines()
                if x.startswith("{")]
     assert [h["iter"] for h in history] == [1]
+    # the ranks' references and FSC before rank 0's broadcast were rank
+    # 0's bits, and the summed insert table held every rank's total
+    gaps = history[0]["rank_gaps"]
+    assert gaps["refs"] == gaps["fsc"] == [0.0, 0.0], gaps
+    assert max(gaps["T"]) <= 2 * 2.0 ** -22, gaps
     assert not any(x.startswith("{") for x in outs[1].splitlines())
     meta = read_thu(str(tmp_path / "out" / "Meta_Final.thu"))
     assert len(meta) == N_IMG

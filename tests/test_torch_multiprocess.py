@@ -43,7 +43,7 @@ from thunder_tpu_torch.core.optimiser import Optimiser
 from thunder_tpu_torch.data import ParticleDataset
 from thunder_tpu_torch.io import read_mrc, read_thu
 from thunder_tpu_torch.parallel import distributed
-from thunder_tpu_torch.parallel.mesh import Mesh
+from thunder_tpu_torch.parallel.mesh import make_mesh
 
 import torch_mp_worker as worker
 from test_engine import B
@@ -165,7 +165,15 @@ def test_ranks_match_one_rank(runs, name, one, rounds):
     C-balance turns the f32 round-off into another iteration count, and
     with a cold start the maps agree to 8.8e-7.)"""
     sp, mp = runs["res"][one], runs["res"][name]
+    world = int(name[2:].lstrip("k"))
     for r in range(1, rounds + 1):
+        # each rank's references and FSC before rank 0's broadcast are
+        # rank 0's bits (the CPU sums in one order), and the summed insert
+        # table's total is the ranks' own totals' sum
+        refs_gap, fsc_gap, t_gap = mp[f"rank_gaps_{r}"]
+        assert refs_gap.shape == (world,)
+        assert not refs_gap.any() and not fsc_gap.any()
+        assert t_gap.max() <= world * 2.0 ** -22, t_gap
         np.testing.assert_array_equal(mp[f"class_{r}"], sp[f"class_{r}"])
         tol = 2e-4 if r == 1 else 2e-3
         np.testing.assert_allclose(mp[f"top_r_{r}"], sp[f"top_r_{r}"],
@@ -280,9 +288,10 @@ def test_row_draws_cut_the_global_batch():
     torch.testing.assert_close(cut.fsc_phases(4)[0], full.fsc_phases(4)[0])
 
 
-def test_uneven_split():
+def test_uneven_split(monkeypatch):
     """(e) ``np.array_split``'s slots per rank, contiguous and covering;
-    an optimiser refuses more ranks than slots."""
+    an optimiser holds its rank's rows of the process group's split and
+    refuses more ranks than slots."""
     assert distributed.split_sizes(7, 3) == [3, 2, 2]
     got = [distributed.local_plane_rows(7, 3, r) for r in range(3)]
     assert got == [slice(0, 3), slice(3, 5), slice(5, 7)]
@@ -292,12 +301,35 @@ def test_uneven_split():
         "voltage", "defocus_u", "defocus_v", "defocus_theta", "cs",
         "amp_contrast")}
     para = Para(size=8, pixel_size=2.0, m_l_r=4, m_l_t=2, m_l_d=1)
-    opt = Optimiser(para, device="cpu", mesh=Mesh(world=2, rank=1))
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    monkeypatch.setattr(distributed, "rank", lambda: 1)
+    opt = Optimiser(para, device="cpu")
     opt.set_data(imgs, cp)
     assert opt.rows == slice(1, 2) and opt.par["r"].shape[1] == 1
+    assert make_mesh().shape == {"half": 1, "data": 2}
+    monkeypatch.setattr(distributed, "world_size", lambda: 3)
+    monkeypatch.setattr(distributed, "rank", lambda: 0)
     with pytest.raises(ValueError, match="ranks for 2 slots"):
-        Optimiser(para, device="cpu", mesh=Mesh(world=3, rank=0)).set_data(
-            imgs, cp)
+        Optimiser(para, device="cpu").set_data(imgs, cp)
+
+
+def test_a_rank_missing_from_the_insert_sum_raises(monkeypatch):
+    """(e) ``Optimiser._sum_over_ranks`` holds the summed insert table's
+    total to the sum of the ranks' own totals: a right sum passes, and a
+    sum that lost the other rank's tables (an all-reduce that hands back
+    this rank's own) raises."""
+    opt = Optimiser(Para(size=8, pixel_size=2.0), device="cpu")
+    t = torch.rand(2, 5, 5, generator=torch.Generator().manual_seed(0))
+    tables = (t.to(torch.complex64), t, torch.ones(2, 1, 4))
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    monkeypatch.setattr(distributed, "all_gather_object", lambda o: [o, o])
+    monkeypatch.setattr(distributed, "all_reduce_sum", lambda x: 2 * x)
+    out = opt._sum_over_ranks(tables)
+    assert torch.equal(out[1], 2 * t)
+    assert opt._rank_gaps["T"] <= 2 * 2.0 ** -22
+    monkeypatch.setattr(distributed, "all_reduce_sum", lambda x: x)
+    with pytest.raises(RuntimeError, match="not the sum of the 2 ranks"):
+        opt._sum_over_ranks(tables)
 
 
 @pytest.mark.parametrize("env,want", [
@@ -308,6 +340,9 @@ def test_uneven_split():
     ({"JAX_COORDINATOR_ADDRESS": "h:5", "JAX_NUM_PROCESSES": "3",
       "JAX_PROCESS_ID": "2", "RANK": "1", "WORLD_SIZE": "2",
       "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}, ("env://", 2, 1, 0, 1)),
+    ({"JAX_COORDINATOR_ADDRESS": "h:5", "JAX_NUM_PROCESSES": "4",
+      "JAX_PROCESS_ID": "3", "LOCAL_WORLD_SIZE": "2"},
+     ("tcp://h:5", 4, 3, 1, 2)),
     ({"JAX_COORDINATOR_ADDRESS": "h:5"}, ValueError),
     ({"JAX_NUM_PROCESSES": "2"}, ValueError),
 ])

@@ -198,6 +198,21 @@ def free_port():
         return sock.getsockname()[1]
 
 
+def run_ranks_on_a_port(argvs, make_envs, logdir, timeout, tries=2):
+    """``run_ranks`` with the environments ``make_envs(port)`` of a port
+    that was free a moment ago. Another process can take the port before
+    rank 0 listens on it; rank 0 then fails at once ("Address already in
+    use") and the launch is made again on a new port, ``tries`` times in
+    all."""
+    for attempt in range(tries):
+        try:
+            return run_ranks(argvs, make_envs(free_port()), logdir, timeout)
+        except AssertionError as e:
+            if ("address already in use" not in str(e).lower()
+                    or attempt == tries - 1):
+                raise
+
+
 def run_ranks(argvs, envs, logdir, timeout):
     """Start one process per argv (with its env), wait for all of them
     under ``timeout`` seconds, and kill the others as soon as one exits

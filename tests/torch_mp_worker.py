@@ -110,6 +110,9 @@ def run(args):
                     f"fsc_{r}": opt.fsc, f"sig_{r}": opt.sig.numpy(),
                     f"refs_{r}": opt.refs.numpy(),
                     f"res_shell_{r}": rec["res_shell"]})
+        if rec["rank_gaps"] is not None:
+            res[f"rank_gaps_{r}"] = np.array(
+                [rec["rank_gaps"][k] for k in ("refs", "fsc", "T")])
     if args.rank:
         leaked = os.listdir(own) if os.path.isdir(own) else []
         if leaked:

@@ -69,9 +69,11 @@ def _run(args, dev):
     from ..data import ParticleDataset
     from ..io import ThuColumns, read_mrc
     from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
     from ..utils import get_logger, init_logger
 
-    rank, world = distributed.rank(), distributed.world_size()
+    mesh = make_mesh()
+    rank, world = mesh.rank, mesh.world
     para = load_para(args.config, strict=getattr(args, "strict", False))
     if args.output:
         para.output_directory = args.output
@@ -79,7 +81,11 @@ def _run(args, dev):
     get_logger("SYS").info("parameters loaded from %s", args.config)
     if world > 1:
         joined = (f"rank {rank} of {world}: backend "
-                  f"{distributed.backend()}, device {dev}")
+                  f"{distributed.backend()}, device {dev}, mesh {mesh.shape}")
+        if distributed.backend() == "gloo" and dev.type == "cuda":
+            joined += ("; warning: more ranks on this host than cards, so "
+                       "the collectives are staged through host memory "
+                       "(set LOCAL_WORLD_SIZE to the ranks a host)")
         get_logger("SYS").info(joined)
         print(joined, flush=True)
     prof = None

@@ -54,6 +54,7 @@ rank (``draws.RowDraws``), so a run does not depend on the rank count.
 
 import dataclasses
 import hashlib
+import json
 import os
 import time
 
@@ -75,7 +76,6 @@ from ..utils import check_memory_usage, get_logger
 from ..ops.mask import soft_mask_shape
 from ..ops.translate import translate_ft, translate_ft_3d, translation_phase
 from ..parallel import distributed, engine
-from ..parallel.mesh import make_mesh
 from . import particle, projector, reconstructor, sampling
 from .draws import Draws, RowDraws
 
@@ -227,13 +227,13 @@ class LadderState:
 
 class Optimiser:
     """One rank's optimiser on one device. ``device`` defaults to CUDA;
-    ``draws`` defaults to a ``Draws`` generator seeded with ``para.seed``;
-    ``mesh`` (``parallel.mesh.Mesh``) defaults to the process group this
-    process joined, one rank without one."""
+    ``draws`` defaults to a ``Draws`` generator seeded with ``para.seed``.
+    The rank and the number of ranks are those of the process group this
+    process joined (``parallel.distributed``; one rank without one)."""
 
     DEFAULT_IMAGE_BATCH = 64
 
-    def __init__(self, para: Para, device=None, draws=None, mesh=None):
+    def __init__(self, para: Para, device=None, draws=None):
         # the kernels are picked by the tensors' device; no other choice
         # of the JAX package's backends exists here
         if para.fused_kernels != "auto":
@@ -244,7 +244,6 @@ class Optimiser:
                              "only takes 'auto' (kernel K2 on CUDA)")
         self.para = para
         self.device = resolve_device(device)
-        self.mesh = make_mesh() if mesh is None else mesh
         self.draws = draws if draws is not None else Draws(para.seed,
                                                            self.device)
         self.sym = Symmetry(para.sym)
@@ -252,6 +251,7 @@ class Optimiser:
         self.n = para.size
         self.iteration = 0
         self.history = []
+        self._rank_gaps = {}
         self.log = get_logger("ROUND")
         n, ps = para.size, para.pixel_size
         a2p = lambda res_a: max(1, int(round(n * ps / res_a)))
@@ -280,8 +280,8 @@ class Optimiser:
     def rows(self):
         """This rank's slots of the (2, S) half-plane layout, a slice of S;
         every per-image tensor holds these rows only."""
-        return distributed.local_plane_rows(self.s_slots, self.mesh.world,
-                                            self.mesh.rank)
+        return distributed.local_plane_rows(
+            self.s_slots, distributed.world_size(), distributed.rank())
 
     def _local(self, a):
         """A global host (2, S, ...) layout array -> this rank's rows."""
@@ -323,9 +323,9 @@ class Optimiser:
         for h in (0, 1):
             self.plane_index[h, :len(idx_h[h])] = idx_h[h]
             self.plane_valid[h, :len(idx_h[h])] = 1.0
-        if self.mesh.world > s:
-            raise ValueError(f"{self.mesh.world} ranks for {s} slots a half: "
-                             "run at most one rank a slot")
+        if distributed.world_size() > s:
+            raise ValueError(f"{distributed.world_size()} ranks for {s} "
+                             "slots a half: run at most one rank a slot")
         gid = (np.zeros(self.n_imgs, np.int32) if group_ids is None
                else np.asarray(group_ids, np.int32))
         self.group_ids = gid
@@ -1024,7 +1024,7 @@ class Optimiser:
                 pf=para.pf, n=self.n, mc=mc, chunk=self._chunk(),
                 k_classes=k_classes, mode=para.mode, insert_kernel=kernel,
                 blob_a=para.a, alpha=para.alpha)
-            return tuple(map(distributed.all_reduce_sum, out))
+            return self._sum_over_ranks(out)
 
         width = 12 if dims == 2 else 24
         self.insert_fused = (k_cls > 1 and k_cls * mc ** dims * width * 4
@@ -1078,9 +1078,43 @@ class Optimiser:
             self.joined_maps = joined
         self.reco_timing = reco_t
         self._update_insert_offsets(np.stack(offs, axis=1))  # (2, K, 4)
-        self.fsc = distributed.broadcast(
-            torch.as_tensor(np.stack(fscs))).numpy()         # (K, shells)
-        self.refs = distributed.broadcast(torch.stack(new_refs, dim=1))
+        self.fsc = self._from_rank0(
+            "fsc", torch.as_tensor(np.stack(fscs))).numpy()  # (K, shells)
+        self.refs = self._from_rank0("refs", torch.stack(new_refs, dim=1))
+
+    def _sum_over_ranks(self, tables):
+        """The insert's folded (F, T, offsets) summed over the ranks. The
+        summed T's total is held to the sum of the ranks' own totals,
+        gathered as numbers apart from the tables: a rank whose tables
+        dropped out of the sum reads as a gap of its share, and raises. Each
+        entry of T is rounded at most once per rank it adds, so the gap of
+        a right sum stays under world x 2^-22 of the total of |T|."""
+        world = distributed.world_size()
+        if world == 1:
+            return tables
+        own = float(tables[1].double().sum())
+        tables = tuple(map(distributed.all_reduce_sum, tables))
+        want = sum(distributed.all_gather_object(own))
+        got = float(tables[1].double().sum())
+        gap = abs(got - want) / max(float(tables[1].abs().double().sum()),
+                                    1e-30)
+        if gap > world * 2.0 ** -22:
+            raise RuntimeError(
+                f"the summed insert table's weight total {got!r} is not the "
+                f"sum of the {world} ranks' own totals {want!r}")
+        self._rank_gaps["T"] = max(self._rank_gaps.get("T", 0.0), gap)
+        return tables
+
+    def _from_rank0(self, name, x):
+        """Rank 0's ``x`` on every rank, so that what steers the run agrees
+        bit for bit; this rank's largest gap to it, over rank 0's largest
+        magnitude, is kept for the round's line in the log."""
+        if distributed.world_size() == 1:
+            return x
+        x0 = distributed.broadcast(x)
+        gap = float((x - x0).abs().max()) / max(float(x0.abs().max()), 1e-30)
+        self._rank_gaps[name] = max(self._rank_gaps.get(name, 0.0), gap)
+        return x0
 
     def _update_insert_offsets(self, offs):
         """prepareO (src/Reconstructor.cpp:1106-1128): symmetrise the
@@ -1183,7 +1217,7 @@ class Optimiser:
         if st == SEARCH_TYPE_CTF and search_type_in != SEARCH_TYPE_CTF:
             self._seed_defocus_search()
         self.iteration += 1
-        self._check_ranks_agree()
+        rank_gaps = self._check_ranks_agree()
         mark("post")
         nph = getattr(self, "phase_counts", None)
         if nph is not None:
@@ -1202,6 +1236,7 @@ class Optimiser:
             "scale": self.scale.tolist() if self.n_groups > 1 else None,
             "timing": timing,
             "n_phase": None if nph is None else nph_stats,
+            "rank_gaps": rank_gaps,
         }
         self.history.append(rec)
         self.log.info("Round %d done: r=%d res=%.2f A type=%d timing=%s",
@@ -1224,27 +1259,37 @@ class Optimiser:
         self.par["sD"] = torch.full_like(self.par["sD"], s)
 
     def _check_ranks_agree(self):
-        """After a round, every rank must hold rank 0's steering state: a
-        digest of the references, FSC, ladder, sigma, scales and insert
-        offsets is gathered and compared, and a mismatch raises (a rank
-        that went its own way would otherwise hang the others at their
-        next collective)."""
-        if self.mesh.world == 1:
-            return
-        h = hashlib.sha256(repr((self.iteration, dataclasses.astuple(
-            self.ladder))).encode())
-        for x in (self.refs, self.sig, getattr(self, "fsc", None),
-                  self.scale, getattr(self, "insert_offsets", None)):
+        """After a round: the state each rank derives on its own from the
+        all-reduced sums (sigma, scales, insert offsets) must be rank 0's.
+        A digest of it is gathered and a mismatch raises (a rank that went
+        its own way would otherwise hang the others at their next
+        collective). The line in the log also gives each rank's largest
+        gap to rank 0 in the references and FSC before rank 0's broadcast
+        (``_from_rank0``) and in the summed insert table's total
+        (``_sum_over_ranks``); they are returned for the round's record
+        (None for one rank)."""
+        world = distributed.world_size()
+        if world == 1:
+            return None
+        h = hashlib.sha256(repr(self.iteration).encode())
+        for x in (self.sig, self.scale, getattr(self, "insert_offsets", None)):
             if x is not None:
                 h.update(np.ascontiguousarray(
                     x.detach().cpu().numpy() if torch.is_tensor(x)
                     else x).tobytes())
-        digests = distributed.all_gather_object(h.hexdigest())
+        got = distributed.all_gather_object((h.hexdigest(), self._rank_gaps))
+        self._rank_gaps = {}
+        digests = [d for d, _ in got]
         if len(set(digests)) != 1:
             raise RuntimeError(f"round {self.iteration}: the ranks' states "
                                f"differ (digests {digests})")
-        self.log.info("round %d: the %d ranks agree (state digest %s)",
-                      self.iteration, self.mesh.world, digests[0][:16])
+        gaps = {k: [g.get(k, 0.0) for _, g in got]
+                for k in ("refs", "fsc", "T")}
+        self.log.info("round %d: the %d ranks agree (state digest %s); "
+                      "largest relative gap of each rank: %s",
+                      self.iteration, world, digests[0][:16],
+                      json.dumps(gaps))
+        return gaps
 
     def run(self, max_iter=None, finalise=True):
         """Rounds until ``max_iter`` (default ``para.iter_max``) or STOP,
@@ -1327,8 +1372,8 @@ class Optimiser:
     def _rank_images(self, index):
         """Rank ``index``'s images in ascending global index, and their
         (half, slot) positions within that rank's rows."""
-        rows = distributed.local_plane_rows(self.s_slots, self.mesh.world,
-                                            index)
+        rows = distributed.local_plane_rows(self.s_slots,
+                                            distributed.world_size(), index)
         pi = self.plane_index[:, rows]
         h, sl = np.nonzero(self.plane_valid[:, rows] > 0)
         order = np.argsort(pi[h, sl], kind="stable")
@@ -1369,7 +1414,7 @@ class Optimiser:
         rot_b = quat.rotate3d(self.par["topR"])                # (2, S, 3, 3)
         rc = self._t(self.region_centre.astype(np.float32))
         h_loc, s_loc = (torch.as_tensor(x, device=dev)
-                        for x in self._rank_images(self.mesh.rank)[1])
+                        for x in self._rank_images(distributed.rank())[1])
         stacks, q_rows = [], []
         for r_g in sym_rots:
             rot_c = torch.einsum("ij,hsjk->hsik", self._t(r_g.T), rot_b)
@@ -1390,7 +1435,7 @@ class Optimiser:
             stacks.append(fft_ops.ifft2_center(diff).real.float()[
                 h_loc, s_loc].cpu().numpy())
             del pri, diff
-        write_mrc(f"{prefix}Subtract_Rank_{self.mesh.rank:06d}.mrcs",
+        write_mrc(f"{prefix}Subtract_Rank_{distributed.rank():06d}.mrcs",
                   np.concatenate(stacks, axis=0), voxel_size=para.pixel_size)
 
         # the particle translations move into the subtracted frame
@@ -1407,7 +1452,7 @@ class Optimiser:
         # image -> (its rank, its place j in that rank's file)
         owner = np.zeros((n_imgs, 2), np.int64)
         count = []
-        for r in range(self.mesh.world):
+        for r in range(distributed.world_size()):
             ids = self._rank_images(r)[0]
             owner[ids] = np.stack([np.full(ids.size, r),
                                    np.arange(ids.size)], axis=1)

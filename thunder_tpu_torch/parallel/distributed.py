@@ -64,9 +64,13 @@ def launch_settings(coordinator=None, num_processes=None, process_id=None,
     if "://" not in coordinator:
         coordinator = f"tcp://{coordinator}"
     rank = int(process_id)
+    # the JAX package's variables name no host: a launch that sets
+    # LOCAL_WORLD_SIZE runs that many consecutive ranks a host, else it is
+    # taken to run every rank on this one
+    local_world = int(env.get("LOCAL_WORLD_SIZE", world))
     return dict(init_method=coordinator, world=world, rank=rank,
-                local_rank=int(env.get("LOCAL_RANK", rank)),
-                local_world=int(env.get("LOCAL_WORLD_SIZE", world)))
+                local_rank=int(env.get("LOCAL_RANK", rank % local_world)),
+                local_world=local_world)
 
 
 def maybe_initialize(coordinator=None, num_processes=None, process_id=None,
