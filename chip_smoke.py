@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --cli      # build + path D (phase 9) only
     python3 chip_smoke.py --mp       # build + path G (phase 12) only
-    python3 chip_smoke.py --mp --ranks 4  # path G as 4 ranks (4 cards: nccl)
+    python3 chip_smoke.py --mp --ranks 3  # path G as 3 ranks: (1, 3), gloo
+    python3 chip_smoke.py --mp --ranks 4  # path G as (2, 2) on 4 cards: nccl
     python3 chip_smoke.py --cli-study  # build + path D's run, 10 seeds
     python3 chip_smoke.py --mp-study  # build + path G's run, 1 / 2 ranks
     python3 chip_smoke.py --data-study  # + the round on bench.py's data
@@ -159,28 +160,41 @@ Phases, each printing a flushed progress line with elapsed seconds:
    (NCCL refuses two ranks on one device; with a card a rank, as
    ``--mp --ranks 4`` on four cards, the ranks join on nccl, each on its
    own card); the launcher kills all ranks as soon as one exits non-zero
-   or MP_WALL_S passes. The run (CLI_ITERS global
+   or MP_WALL_S passes. The ranks take the JAX package's (half, data)
+   layout: two ranks are (2, 1), rank r holding hemisphere r's 128 images,
+   brick tables and maps; ``--ranks 4`` is (2, 2) and ``--ranks 3`` the
+   data-only (1, 3). The run (CLI_ITERS global
    rounds and the final round; rank 1 given an output directory of its
-   own): each rank on cuda:0 launches K1 in every global round and K2 in
-   every round, 2 halves x one 64-image chunk of its 128 images a call;
+   own): each rank logged its (half, data) coordinates, built brick
+   tables of its halves only (leading dimension lh: 1 on (2, W/2)) and on
+   cuda:0 launched K1 in every global round and K2 in every round, lh
+   halves x its 64-image chunks a call (``rank_calls``);
    only rank 0 printed the history and wrote the run's files (the file set
    of path D; each other rank's directory holds only its thunder.log); each rank
    logged that the ranks' states agreed after every round, and each
    round's record holds each rank's largest gap to rank 0 in the
-   references and FSC before rank 0 broadcasts them (MP_MAP_GAP_MAX) and
-   the summed insert table's total against the ranks' own (its rounding
-   bound, ranks x 2^-22: a rank missing from the sum reads far over it,
-   and the optimiser raises); each round's
+   references and FSC before rank 0 broadcasts them (MP_MAP_GAP_MAX; the
+   half maps reach every rank from the rank that reconstructed them, so
+   each half is read against the rank that holds the same hemisphere) and
+   the summed insert table's total against its hemisphere's data ranks'
+   own (its rounding bound, data ranks x 2^-22: a rank missing from the
+   sum reads far over it, and the optimiser raises; on (2, 1) no table is
+   summed and the gap is 0) and, on (2, W/2), the number of gathered half
+   maps each rank held to the digest their owner took before the pair
+   gather (a gather that hands back the wrong half raises; each rank
+   checked both halves of every reconstruction, the same count on every
+   rank, and none on (1, W)); each round's
    Meta_Round_*.thu poses under ROUND_ANG_MAX and its shell at
    ROUND_RES_MIN, Meta_Final.thu's shifts within path D's bars, the final
    shell at ROUND_RES_MIN and the final map's FSC against the phantom
    above 0.5 over shells 1 .. TOOL_RECON_SHELLS. Then the resume from its
    Meta_Final.thu with subtraction, both ranks into one directory: K1 0
    and K2 in the local round, the final round and the subtraction's
-   reconstruction, the pose bar, Subtract_Rank_000000.mrcs and
-   Subtract_Rank_000001.mrcs reassembled through Meta_Subtract.thu's paths
-   (each slice once) and held to SUB_RESID_MAX; each run's wall seconds
-   and each rank's peak device memory beside the card line;
+   reconstruction, the pose bar, the ranks' Subtract_Rank_*.mrcs (each of
+   its own block's images: on (2, 1) rank 0's of hemisphere A, rank 1's
+   of B) reassembled through Meta_Subtract.thu's paths (each slice once)
+   and held to SUB_RESID_MAX; each run's wall seconds and each rank's
+   coordinates, launches and peak device memory beside the card line;
 13. a JSON line of per-kernel numbers (launches summed over the rounds of
    phases 5a-b and 6-12 (path G's over its ranks), and per round or run; K1's readings at the
    class-stacked shapes; K2's on the fused class table and on a
@@ -343,9 +357,11 @@ MP_WALL_S = 120
 # each round's record of a multi-rank run carries each rank's largest gap
 # to rank 0 in the references and the FSC before rank 0 broadcasts them
 # (relative to their largest magnitude) and of the summed insert table's
-# weight total to the ranks' own totals gathered as numbers; the ranks
-# sum identical all-reduced tables, so only the card's float atomics part
-# their maps: MP_MAP_GAP_MAX on the maps, ranks x 2^-22 on the total
+# weight total to its hemisphere's data ranks' own totals gathered as
+# numbers; those ranks sum identical all-reduced tables, so only the
+# card's float atomics part their maps: MP_MAP_GAP_MAX on the maps, data
+# ranks x 2^-22 on the total; on (2, W/2) it also counts the half maps
+# each rank held to their owners' digests after the pair gather
 MP_MAP_GAP_MAX = 1e-3
 # path E, general point-group symmetry: bench.py's Para with sym I on 256
 # images of an I-symmetric phantom (``sym_phantom`` of SYM_DESIGN: 30
@@ -2292,7 +2308,25 @@ def rank_run(argv):
     from thunder_tpu_torch.cli.main import main as cli
     from thunder_tpu_torch.ops import insert, likelihood
 
+    from thunder_tpu_torch.core.optimiser import Optimiser
+    from thunder_tpu_torch.parallel import engine
+
     report, args = argv[0], argv[2:]
+    seen = {"coords": None, "bricks": set(), "insert": set()}
+    bricks, insert_fold = Optimiser._bricks, engine.insert_fold_reduce
+
+    def bricks_seen(self, *a, **kw):
+        tabs = bricks(self, *a, **kw)
+        seen["coords"] = list(self.mesh.coords())
+        seen["bricks"].add(tabs.shape[0])
+        return tabs
+
+    def insert_seen(*a, **kw):
+        out = insert_fold(*a, **kw)
+        seen["insert"].add(out[0].shape[0])
+        return out
+
+    Optimiser._bricks, engine.insert_fold_reduce = bricks_seen, insert_seen
     likelihood.LAUNCHES["scan_fused"] = 0
     insert.LAUNCHES["insert_update"] = 0
     t0 = time.perf_counter()
@@ -2300,7 +2334,9 @@ def rank_run(argv):
     wall = time.perf_counter() - t0
     with open(report, "w") as f:
         json.dump(dict(wall=wall, peak_gib=torch.cuda.max_memory_allocated()
-                       / 2 ** 30, launches={
+                       / 2 ** 30, coords=seen["coords"],
+                       bricks=sorted(seen["bricks"]),
+                       insert=sorted(seen["insert"]), launches={
                            "global_scan": likelihood.LAUNCHES["scan_fused"],
                            "insert_update":
                                insert.LAUNCHES["insert_update"]}), f)
@@ -2385,24 +2421,52 @@ def rank_devices(dev, ranks):
             [f"cuda:{r % n_dev}" for r in range(ranks)])
 
 
+def rank_layout(ranks):
+    """The (half, data) layout ``make_mesh`` gives ``ranks`` ranks: (2,
+    ranks / 2) when even, (1, ranks) when odd."""
+    halves = 2 if ranks % 2 == 0 else 1
+    return halves, ranks // halves
+
+
+def rank_calls(b, ranks):
+    """Each rank's kernel calls a round: its lh halves x the 64-image
+    chunks of its slice of the b / 2 slots of a half."""
+    import numpy as np
+
+    halves, n_data = rank_layout(ranks)
+    sizes = [len(x) for x in np.array_split(np.arange(-(-b // 2)), n_data)]
+    return [(2 // halves) * -(-sizes[r % n_data] // 64)
+            for r in range(ranks)]
+
+
 def check_ranks(dev, label, reports, outs, scans, inserts, rounds, logs):
     """Each rank joined the group on the backend and device
-    ``rank_devices`` names and launched K1 ``scans`` and K2 ``inserts``
-    times; only rank 0 printed the history (returned); every rank's
-    thunder.log (``logs[r]``) records that the ranks agreed after each of
-    the ``rounds`` rounds."""
+    ``rank_devices`` names at its (half, data) coordinates, built brick
+    and insert tables of its own halves only (leading dimension lh) and
+    launched K1 ``scans[r]`` and K2 ``inserts[r]`` times; only rank 0
+    printed the history (returned); every rank's thunder.log (``logs[r]``)
+    records that the ranks agreed after each of the ``rounds`` rounds."""
     ranks = len(reports)
     backend, devices = rank_devices(dev, ranks)
+    halves, n_data = rank_layout(ranks)
     for r, (rep, out) in enumerate(zip(reports, outs)):
+        h, d = divmod(r, n_data)
         want = (f"rank {r} of {ranks}: backend {backend}, device "
-                f"{devices[r]}")
+                f"{devices[r]}, mesh {{'half': {halves}, 'data': {n_data}}}"
+                f", coordinates (half {h}, data {d})")
         if want not in out:
             raise AssertionError(f"path G {label} rank {r}: no '{want}'")
-        if rep["launches"] != {"global_scan": scans,
-                               "insert_update": inserts}:
+        if rep["coords"] != [h, d] or rep["insert"] != [2 // halves] or (
+                rep["bricks"] not in ([], [2 // halves])):
+            raise AssertionError(
+                f"path G {label} rank {r}: coordinates {rep['coords']}, "
+                f"brick tables' halves {rep['bricks']}, insert tables' "
+                f"{rep['insert']} on the layout ({halves}, {n_data})")
+        if rep["launches"] != {"global_scan": scans[r],
+                               "insert_update": inserts[r]}:
             raise AssertionError(f"path G {label} rank {r}: launches "
-                                 f"{rep['launches']}, expected K1 {scans}, "
-                                 f"K2 {inserts}")
+                                 f"{rep['launches']}, expected K1 "
+                                 f"{scans[r]}, K2 {inserts[r]}")
         with open(logs[r]) as f:
             text = f.read()
         for i in range(1, rounds + 1):
@@ -2421,18 +2485,31 @@ def check_ranks(dev, label, reports, outs, scans, inserts, rounds, logs):
 def rank_gaps(label, hist, ranks):
     """The largest of each round's ``rank_gaps`` over the rounds of the
     printed history ``hist`` of a ``ranks``-rank run: the maps' (refs,
-    FSC) held to MP_MAP_GAP_MAX, the summed insert table's total to ranks
-    x 2^-22 (its rounding bound)."""
+    FSC) held to MP_MAP_GAP_MAX, the summed insert table's total to its
+    hemisphere's data ranks x 2^-22 (its rounding bound); on (2, W/2)
+    every rank held the same, even, non-zero number of gathered half maps
+    to their owners' digests each round (both halves of each of its
+    reconstructions), on (1, W) none."""
+    halves, n_data = rank_layout(ranks)
     worst = {"refs": 0.0, "fsc": 0.0, "T": 0.0}
     for h in hist:
         got = h.get("rank_gaps")
-        if got is None or any(len(got[k]) != ranks for k in worst):
+        if got is None or any(len(got.get(k, ())) != ranks
+                              for k in (*worst, "pair")):
             raise AssertionError(f"path G {label}: round {h['iter']} "
                                  f"records no gaps of {ranks} ranks: {got}")
         for k in worst:
             worst[k] = max(worst[k], max(got[k]))
+        pair = got["pair"]
+        if (len(set(pair)) != 1 or pair[0] % 2
+                or (pair[0] > 0) != (halves == 2)):
+            raise AssertionError(f"path G {label}: round {h['iter']}: the "
+                                 f"ranks held {pair} gathered half maps to "
+                                 f"their owners' digests on the layout "
+                                 f"({halves}, {n_data})")
+        worst["pair"] = worst.get("pair", 0) + pair[0]
     if (max(worst["refs"], worst["fsc"]) > MP_MAP_GAP_MAX
-            or worst["T"] > ranks * 2.0 ** -22):
+            or worst["T"] > n_data * 2.0 ** -22):
         raise AssertionError(f"path G {label}: the ranks' gaps {worst}")
     return worst
 
@@ -2483,8 +2560,9 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
         stack, truth = write_cli_dataset(dev, work, n, b)
         q_true = truth["q"]
         quats = lambda t: t.values[:, ThuColumns.QUAT_0:ThuColumns.QUAT_3 + 1]
-        # a rank's calls: 2 halves x its 64-image chunks
-        calls = 2 * -(-(b // 2 // ranks) // 64)
+        # a rank's calls a round: its halves x its 64-image chunks
+        calls = rank_calls(b, ranks)
+        times = lambda k: [k * c for c in calls]
         # rank 0 writes into out, the others get directories of their own
         outs_r = [f"{work}/out"] + [f"{work}/out_rank{r}"
                                     for r in range(1, ranks)]
@@ -2493,8 +2571,8 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
             json.dump(cli_config(work, f"{work}/particles.thu", out, n=n), f)
         wall, reps, outs = launch_ranks(work, "run", [
             ["run", f"{work}/run.json", "-o", o] for o in outs_r])
-        hist = check_ranks(dev, "cli run", reps, outs, CLI_ITERS * calls,
-                           (CLI_ITERS + 1) * calls, CLI_ITERS,
+        hist = check_ranks(dev, "cli run", reps, outs, times(CLI_ITERS),
+                           times(CLI_ITERS + 1), CLI_ITERS,
                            [f"{o}/thunder.log" for o in outs_r])
         gaps = rank_gaps("cli run", hist, ranks)
         got = set(os.listdir(out))
@@ -2519,7 +2597,9 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
         low = fsc[1:TOOL_RECON_SHELLS + 1]
         backend, devices = rank_devices(dev, ranks)
         log(f"path G cli run, {ranks} ranks (backend {backend}, devices "
-            f"{devices}): {wall:.2f} s (each rank "
+            f"{devices}, layout {rank_layout(ranks)}, coordinates "
+            f"{[r['coords'] for r in reps]}, brick tables' halves "
+            f"{[r['bricks'] for r in reps]}): {wall:.2f} s (each rank "
             f"{[round(r['wall'], 2) for r in reps]} s in cli.main, peak "
             f"{[round(r['peak_gib'], 3) for r in reps]} GiB; {card}); "
             f"launches {[r['launches'] for r in reps]}; rounds' median pose "
@@ -2530,7 +2610,9 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
             f"0.5 at {int(np.argmax(fsc[1:] < 0.5)) + 1}; only rank 0 wrote "
             f"files; the ranks agreed after every round, their largest "
             f"relative gaps {json.dumps(gaps)} (maps' bar {MP_MAP_GAP_MAX}, "
-            f"the table total's {ranks * 2.0 ** -22:.3g})")
+            f"the table total's "
+            f"{rank_layout(ranks)[1] * 2.0 ** -22:.3g}); rank 0's round "
+            f"stages (s) {[{k: round(v, 2) for k, v in h['timing'].items()} for h in hist]}")
         lo, hi = META_TRANS_SLOPE
         if not (max(errs) < ROUND_ANG_MAX and min(shells) >= ROUND_RES_MIN
                 and final_shell >= ROUND_RES_MIN and low.min() > 0.5
@@ -2549,7 +2631,8 @@ def run_mp_path(dev, card, n=160, b=N_PARTICLES, ranks=MP_RANKS):
         r_wall, r_reps, r_outs = launch_ranks(
             work, "resume", [["run", f"{work}/resume.json"]] * ranks)
         r_gaps = rank_gaps("resume", check_ranks(
-            dev, "resume + subtraction", r_reps, r_outs, 0, 3 * calls, 1,
+            dev, "resume + subtraction", r_reps, r_outs, times(0), times(3),
+            1,
             [f"{resume}/thunder.log"] * ranks), ranks)
         r_err = float(np.median(pose_error_q(quats(read_thu(
             f"{resume}/Meta_Final.thu")), q_true)))

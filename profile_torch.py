@@ -51,6 +51,16 @@ a global round and a local round pinned at r = 40 unprofiled, then a
 second pinned local round under the profiler, with the seconds of its
 symmetrisation (``engine.symmetrize_halves``: 2 halves x the group's
 general rotations at mc = 293) beside the round's reconstruction stages.
+
+    python3 profile_torch.py --mp-compare PARENT [--ranks N] [--out DIR]
+
+runs ``chip_smoke.py --mp --ranks N`` (path G, N = 4 by default: four
+cards) from the checkout PARENT and from this one, in the order parent,
+this, this, parent. For each run it prints path G's launch-to-exit and
+in-main seconds of the run and the resume (``chip_smoke.py``'s own
+lines) and rank 0's timeline of each, read from its thunder.log and the
+time its report was written (``mp_timeline``). The smoke's logs and
+reports go to DIR (default build/mp_compare).
 """
 
 import json
@@ -350,6 +360,105 @@ def main_sym(argv):
     return 0
 
 
+# run in a checkout's root: chip_smoke.py --mp, keeping the logs and the
+# rank reports of its work directory (with their times) in MP_KEEP_DIR
+_MP_WRAP = """
+import os, runpy, shutil, sys
+keep, rmtree = os.environ["MP_KEEP_DIR"], shutil.rmtree
+def kept(path, *a, **kw):
+    for root, _, files in os.walk(path):
+        for f in files:
+            if f.endswith((".log", ".json")):
+                rel = os.path.relpath(os.path.join(root, f), path)
+                shutil.copy2(os.path.join(root, f),
+                             os.path.join(keep, rel.replace(os.sep, "__")))
+    rmtree(path, *a, **kw)
+shutil.rmtree = kept
+sys.argv = ["chip_smoke.py", "--mp", "--ranks", os.environ["MP_RANKS"]]
+runpy.run_path("chip_smoke.py", run_name="__main__")
+"""
+
+
+def mp_timeline(keep, label):
+    """Rank 0's seconds in path G's ``label`` (run or resume) from the
+    files ``_MP_WRAP`` kept: from cli.main's start (its report's time less
+    its wall) to the parameters' log line (joining the group, the layout's
+    sub-groups), to the dataset's, to each round's end (with the round's
+    own reconstruction seconds), and from the last round to cli.main's
+    end (the final round and files, or the subtraction)."""
+    import datetime
+    import re
+
+    report = os.path.join(keep, f"{label}_rank0.json")
+    with open(report) as f:
+        end = os.path.getmtime(report)
+        start = end - json.load(f)["wall"]
+    log = os.path.join(keep, ("out" if label == "run" else "resume")
+                       + "__thunder.log")
+    stamp = lambda line: datetime.datetime.strptime(
+        line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    out, t = {}, start
+    with open(log) as f:
+        for line in f:
+            if "[host 0]" not in line:
+                continue
+            key = None
+            if "parameters loaded" in line:
+                key = "to parameters"
+            elif "[thunder.INIT] dataset" in line:
+                key = "dataset"
+            else:
+                m = re.search(r"Round (\d+) done.*'reconstruction': "
+                              r"([\d.]+)", line)
+                if m:
+                    key = f"round {m.group(1)}"
+                    out[f"round {m.group(1)} reconstruction"] = float(
+                        m.group(2))
+            if key:
+                out[key] = round(stamp(line) - t, 3)
+                t = stamp(line)
+    out["after the last round"] = round(end - t, 3)
+    return out
+
+
+def main_mp_compare(argv, cs):
+    import re
+    import subprocess
+
+    parent = os.path.abspath(argv[0])
+    ranks = argv[argv.index("--ranks") + 1] if "--ranks" in argv else "4"
+    out = (argv[argv.index("--out") + 1] if "--out" in argv
+           else os.path.join("build", "mp_compare"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    pick = re.compile(r"path G (cli run|resume \+ subtraction), \d+ ranks.*?"
+                      r": ([\d.]+) s \(each rank (\[[^]]*\]) s")
+    order = [("parent", parent), ("change", here), ("change", here),
+             ("parent", parent)]
+    results = []
+    for i, (tag, tree) in enumerate(order):
+        keep = os.path.abspath(os.path.join(out, f"{i}_{tag}"))
+        os.makedirs(keep, exist_ok=True)
+        env = dict(os.environ, MP_KEEP_DIR=keep, MP_RANKS=ranks)
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-c", _MP_WRAP], cwd=tree,
+                           env=env, capture_output=True, text=True)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(keep, "smoke.log"), "w") as f:
+            f.write(p.stdout + p.stderr)
+        got = {"tree": tag, "rc": p.returncode, "command_s": round(wall, 2)}
+        for m in pick.finditer(p.stdout):
+            label = m.group(1).split()[0]
+            got[label] = {"launch_to_exit_s": float(m.group(2)),
+                          "cli_main_s": json.loads(m.group(3))}
+            if p.returncode == 0:
+                got[label]["rank0"] = mp_timeline(
+                    keep, "run" if label == "cli" else "resume")
+        results.append(got)
+        print(json.dumps(got), flush=True)
+    print(f"card: {cs.card_line()}", flush=True)
+    return 0 if all(r["rc"] == 0 for r in results) else 1
+
+
 def main(argv):
     import torch
 
@@ -358,6 +467,8 @@ def main(argv):
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
         return 2
+    if "--mp-compare" in argv:
+        return main_mp_compare([a for a in argv if a != "--mp-compare"], cs)
     if "--classes" in argv:
         return main_classes([a for a in argv if a != "--classes"])
     if "--ctf" in argv:

@@ -232,9 +232,10 @@ def test_every_subcommand_is_ported():
 def test_run_joins_a_multi_process_launch(launcher, tmp_path):
     """``python -m thunder_tpu_torch.cli --cpu run`` started as two ranks
     under the JAX package's launch variables or under torchrun's joins one
-    gloo group: each rank reads its own half of the images, the two run one
-    round and the final round together, rank 0 alone prints the history
-    and writes the run's files, and both log to the one thunder.log."""
+    gloo group on the JAX package's (2, 1) layout: each rank reads its own
+    hemisphere's images (rank r hemisphere r), the two run one round and
+    the final round together, rank 0 alone prints the history and writes
+    the run's files, and both log to the one thunder.log."""
     from thunder_tpu.io.thu import ThuColumns
 
     from test_torch_dataset_run import B as N_IMG
@@ -258,7 +259,8 @@ def test_run_joins_a_multi_process_launch(launcher, tmp_path):
                                timeout=240)
     for r, out in enumerate(outs):
         assert (f"rank {r} of 2: backend gloo, device cpu, mesh "
-                "{'half': 1, 'data': 2}") in out, out
+                f"{{'half': 2, 'data': 1}}, coordinates (half {r}, data 0)"
+                ) in out, out
     history = [json.loads(x) for x in outs[0].splitlines()
                if x.startswith("{")]
     assert [h["iter"] for h in history] == [1]

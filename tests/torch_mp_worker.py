@@ -3,17 +3,22 @@ run as a script so that it imports neither jax nor thunder_tpu. Ranks meet
 through a ``file://`` rendezvous on the gloo backend, on the CPU.
 
     python torch_mp_worker.py run WORKDIR RANK WORLD INIT_FILE ROUNDS OUT
-        [--draws NPZ] [--subtract] [--para NAME]
+        [--draws NPZ] [--subtract] [--para NAME] [--halves {1,2}]
     python torch_mp_worker.py lockstep RANK WORLD INIT_FILE RESULT_NPZ
 
 ``run``: the refinement of WORKDIR's dataset (particles.thu, stack.mrcs,
-init.mrc, NAME, default para.json): ``set_data_from_dataset`` (each rank reads its own
-images), ROUNDS rounds each followed by ``save_outputs`` into WORKDIR/OUT
-for rank 0 and WORKDIR/OUT_rank{r} for the others, which must stay empty;
-then, with ``--subtract``, the subtraction pipeline into WORKDIR/OUT from
-every rank. ``--draws`` replays recorded draws (``NpzDraws``) instead of
-the port's own. Rank 0 saves each round's poses, classes, FSC, sigma,
-references and shell to WORKDIR/OUT.npz.
+init.mrc, NAME, default para.json) on the layout ``make_mesh(n_halves=
+HALVES)`` (default 2: (2, W/2) at an even W, (1, W) at an odd one):
+``set_data_from_dataset`` (each rank reads its own images), ROUNDS rounds
+each followed by ``save_outputs`` into WORKDIR/OUT for rank 0 and
+WORKDIR/OUT_rank{r} for the others, which must stay empty; then, with
+``--subtract``, the subtraction pipeline into WORKDIR/OUT from every rank.
+``--draws`` replays recorded draws (``NpzDraws``) instead of the port's
+own. Rank 0 saves each round's poses, classes, FSC, sigma, references and
+shell to WORKDIR/OUT.npz; every rank saves its layout to
+WORKDIR/OUT_layout_{rank}.json: its (half, data) coordinates, planes and
+rows, the half axis of its images, brick tables, insert tables and warm
+C-balance weights, and the ranks each insert table was summed over.
 
 ``lockstep``: ``engine.local_search`` on this rank's rows of a seeded
 problem, with ``particle.vari_shrank`` forced so that rank 0's images never
@@ -34,6 +39,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from thunder_tpu_torch.parallel import distributed  # noqa: E402
+from thunder_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -96,7 +102,9 @@ def run(args):
     own = out if args.rank == 0 else f"{out}_rank{args.rank}"
     para = dataclasses.replace(para, output_directory=own)
     draws = NpzDraws(args.draws) if args.draws else None
-    opt = Optimiser(para, device="cpu", draws=draws)
+    opt = Optimiser(para, device="cpu", draws=draws,
+                    mesh=make_mesh(n_halves=args.halves))
+    layout = watch_layout(opt)
     opt.set_data_from_dataset(ParticleDataset(
         os.path.join(w, "particles.thu"), particle_prefix=w, seed=para.seed))
     opt.init_reference(read_mrc(os.path.join(w, "init.mrc")))
@@ -112,7 +120,7 @@ def run(args):
                     f"res_shell_{r}": rec["res_shell"]})
         if rec["rank_gaps"] is not None:
             res[f"rank_gaps_{r}"] = np.array(
-                [rec["rank_gaps"][k] for k in ("refs", "fsc", "T")])
+                [rec["rank_gaps"][k] for k in ("refs", "fsc", "T", "pair")])
     if args.rank:
         leaked = os.listdir(own) if os.path.isdir(own) else []
         if leaked:
@@ -123,7 +131,44 @@ def run(args):
         opt._subtract_pipeline()
     if distributed.is_main():
         np.savez(f"{out}.npz", **res)
+    mesh = opt.mesh
+    layout.update(coords=list(mesh.coords()), shape=mesh.shape,
+                  planes=[opt.planes.start, opt.planes.stop],
+                  rows=[opt.rows.start, opt.rows.stop],
+                  images=opt.imgs_ft_ori.shape[0], par=opt.par["r"].shape[0],
+                  bricks=opt._bricks().shape[0],
+                  w_warm=sorted({w.shape[0] for w in opt._w_warm.values()}))
+    with open(f"{out}_layout_{args.rank}.json", "w") as f:
+        json.dump(layout, f)
     distributed.shutdown()
+
+
+def watch_layout(opt):
+    """Record the half axis of every insert table ``opt`` builds and the
+    ranks each all-reduce of such a table runs over (the world as all
+    ranks), into the returned dict."""
+    from thunder_tpu_torch.parallel import engine
+
+    seen = {"insert": [], "insert_sum_ranks": []}
+    insert, reduce = engine.insert_fold_reduce, distributed.all_reduce_sum
+    last = {}
+
+    def insert_watched(*a, **kw):
+        out = insert(*a, **kw)
+        seen["insert"].append(out[0].shape[0])
+        last["shape"] = out[0].shape
+        return out
+
+    def reduce_watched(x, group=None):
+        if x.is_complex() and x.shape == last.get("shape"):
+            seen["insert_sum_ranks"].append(
+                list(range(distributed.world_size())) if group is None
+                else list(group.ranks))
+        return reduce(x, group)
+
+    engine.insert_fold_reduce = insert_watched
+    distributed.all_reduce_sum = reduce_watched
+    return seen
 
 
 def lockstep(args):
@@ -215,6 +260,7 @@ def main(argv):
     r.add_argument("--draws", default="")
     r.add_argument("--subtract", action="store_true")
     r.add_argument("--para", default="para.json")
+    r.add_argument("--halves", type=int, choices=(1, 2), default=2)
     r.set_defaults(fn=run)
     lk = sub.add_parser("lockstep")
     lk.add_argument("rank", type=int)

@@ -53,7 +53,10 @@ def _host(x):
 def cmd_run(args):
     """Refinement; under torchrun's variables or the JAX package's
     (``parallel.distributed.maybe_initialize``) one rank of a
-    multi-process run, which leaves its process group at the end."""
+    multi-process run, which leaves its process group at the end. The
+    ranks take the JAX package's (half, data) layout
+    (``parallel.mesh.make_mesh``): (2, W/2) at an even rank count W, one
+    hemisphere a rank, and (1, W) at an odd one."""
     from ..parallel import distributed
 
     dev = distributed.maybe_initialize(cpu=getattr(args, "cpu", False))
@@ -80,8 +83,10 @@ def _run(args, dev):
     init_logger(para.output_directory, process_index=rank)
     get_logger("SYS").info("parameters loaded from %s", args.config)
     if world > 1:
+        half, data = mesh.coords()
         joined = (f"rank {rank} of {world}: backend "
-                  f"{distributed.backend()}, device {dev}, mesh {mesh.shape}")
+                  f"{distributed.backend()}, device {dev}, mesh {mesh.shape}, "
+                  f"coordinates (half {half}, data {data})")
         if distributed.backend() == "gloo" and dev.type == "cuda":
             joined += ("; warning: more ranks on this host than cards, so "
                        "the collectives are staged through host memory "
@@ -98,7 +103,7 @@ def _run(args, dev):
         prof = torch.profiler.profile(activities=acts)
         prof.start()
     ds = ParticleDataset(para.db, para.par_prefix, seed=para.seed)
-    opt = Optimiser(para, device=dev)
+    opt = Optimiser(para, device=dev, mesh=mesh)
     opt.set_data_from_dataset(ds)
     if not para.g_search:
         # resume from the stored poses (Global Search: false)

@@ -106,22 +106,25 @@ class Draws:
 
 
 class RowDraws:
-    """The per-image draws of ``draws`` cut to one rank's slots: every
+    """The per-image draws of ``draws`` cut to one rank's block: every
     rank of a multi-process run draws the global (2, S) batch from the same
-    stream and keeps the rows ``rows`` (a slice of S), so each image takes
-    the same draws whatever the rank count. Draws that are not per image
-    (the scan grid, the FSC phase fields, a resigned class's phases) pass
-    through unchanged. ``draws`` is any object with ``Draws``' methods."""
+    stream and keeps the planes ``planes`` (a slice of the half axis: its
+    hemisphere on the (2, W/2) layout, both on (1, W)) and the rows
+    ``rows`` (a slice of S), so each image takes the same draws whatever
+    the layout. Draws that are not per image (the scan grid, the FSC phase
+    fields, a resigned class's phases) pass through unchanged. ``draws``
+    is any object with ``Draws``' methods."""
 
-    def __init__(self, draws, rows):
+    def __init__(self, draws, rows, planes=slice(0, 2)):
         self.draws = draws
         self.rows = rows
+        self.planes = planes
 
     def __getattr__(self, name):
         return getattr(self.draws, name)
 
     def _cut(self, x):
-        return x[:, self.rows]
+        return x[self.planes, self.rows]
 
     def scale_quats(self, shape):
         return self._cut(self.draws.scale_quats(shape))

@@ -3,9 +3,12 @@ final round, for 3D refinement, 3D classification (K > 1) and 2D
 classification (port of ``thunder_tpu.core.optimiser``; Optimiser::run
 src/Optimiser.cpp:3561-4363).
 
-Every per-image quantity lives as a (2, S, ...) tensor — plane 0 =
-hemisphere A, plane 1 = B, S slots per plane (invalid slots carry
-``plane_valid`` 0) — on one device. One round of ``run_iteration``:
+Every per-image quantity lives as an (lh, S, ...) tensor on one device:
+the global half-plane layout (2, S) — plane 0 = hemisphere A, plane 1 = B,
+S slots per plane (invalid slots carry ``plane_valid`` 0) — cut to this
+rank's block (``parallel.mesh``): lh = 2 when the rank holds both planes
+(one process, or an odd rank count), lh = 1 when it holds one hemisphere.
+One round of ``run_iteration``:
 
 - E-step: ``global_scan`` (engine.scan_init with kernel K1; global rounds
   only) and ``local_search`` (the particle-filter phase loop; in CTF-search
@@ -42,14 +45,21 @@ under ``mask_fsc``. With ``para.subtract`` the final round ends in the
 signal-subtraction pipeline (``_subtract_pipeline``: the subtracted stack
 Subtract_Rank_000000.mrcs and Meta_Subtract.thu).
 
-A multi-process run (``parallel.distributed``) splits the S slots of both
-planes over the ranks (``rows``): each rank reads and holds its own slots'
-images and state, every sum over images is all-reduced (the insert's
-folded F/T per half, the statistics), per-image views for files are
-gathered (``_from_plane``), and rank 0 broadcasts what steers the run
-(references, FSC, ladder) and alone writes the files; each rank writes its
-own subtraction stack. The draws keep the global (2, S) shape on every
-rank (``draws.RowDraws``), so a run does not depend on the rank count.
+A multi-process run (``parallel.distributed``) lays its W ranks out as
+the JAX package's mesh does (``mesh.make_mesh``): (2, W/2) at an even W,
+where rank r holds hemisphere r // (W/2) and slice r % (W/2) of its S
+slots, and (1, W) at an odd W, where every rank holds both planes' slice r
+(``planes``, ``rows``). Each rank reads and holds its own block's images
+and state and builds, inserts, symmetrises and reconstructs only its
+halves. The insert's folded F/T are summed over the hemisphere's data
+ranks (the JAX package's psum over ``data``), the statistics over every
+rank (its psum over (half, data)); the two half maps, the insert offsets
+and the final round's F/T meet over the pair of ranks at one data index.
+Per-image views for files are gathered (``_from_plane``), rank 0
+broadcasts what steers the run (references, FSC, ladder) and alone writes
+the files; each rank writes its own subtraction stack. The draws keep the
+global (2, S) shape on every rank (``draws.RowDraws``), so a run does not
+depend on the layout.
 """
 
 import dataclasses
@@ -76,6 +86,7 @@ from ..utils import check_memory_usage, get_logger
 from ..ops.mask import soft_mask_shape
 from ..ops.translate import translate_ft, translate_ft_3d, translation_phase
 from ..parallel import distributed, engine
+from ..parallel.mesh import make_mesh
 from . import particle, projector, reconstructor, sampling
 from .draws import Draws, RowDraws
 
@@ -101,6 +112,13 @@ EDGE_WIDTH_RL = 6.0  # include/Macro.h
 # and otherwise one class at a time with the other classes' weights zeroed
 # (the JAX package's rule, thunder_tpu/core/optimiser.py:1428-1429)
 FUSED_CLASS_BYTES = 3e9
+
+
+def _digest(x):
+    """A checksum of float32 tensor ``x``'s bits, taken on its device: the
+    exact integer sum of its 32-bit words, the same on every card."""
+    return int(x.detach().contiguous().view(torch.int32).sum(
+        dtype=torch.int64))
 
 
 def _centroid(vol):
@@ -227,13 +245,14 @@ class LadderState:
 
 class Optimiser:
     """One rank's optimiser on one device. ``device`` defaults to CUDA;
-    ``draws`` defaults to a ``Draws`` generator seeded with ``para.seed``.
-    The rank and the number of ranks are those of the process group this
-    process joined (``parallel.distributed``; one rank without one)."""
+    ``draws`` defaults to a ``Draws`` generator seeded with ``para.seed``;
+    ``mesh`` (``parallel.mesh.Mesh``) defaults to ``make_mesh()``, the
+    (half, data) layout of the process group this process joined (one rank
+    without one)."""
 
     DEFAULT_IMAGE_BATCH = 64
 
-    def __init__(self, para: Para, device=None, draws=None):
+    def __init__(self, para: Para, device=None, draws=None, mesh=None):
         # the kernels are picked by the tensors' device; no other choice
         # of the JAX package's backends exists here
         if para.fused_kernels != "auto":
@@ -246,6 +265,7 @@ class Optimiser:
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else Draws(para.seed,
                                                            self.device)
+        self.mesh = make_mesh() if mesh is None else mesh
         self.sym = Symmetry(para.sym)
         self.dims = 2 if para.mode == "2d" else 3
         self.n = para.size
@@ -277,21 +297,26 @@ class Optimiser:
             torch.cuda.synchronize(self.device)
 
     @property
+    def planes(self):
+        """This rank's planes of the (2, S) half-plane layout, a slice of
+        the half axis: its hemisphere on (2, W/2), both on (1, W)."""
+        return self.mesh.planes
+
+    @property
     def rows(self):
         """This rank's slots of the (2, S) half-plane layout, a slice of S;
-        every per-image tensor holds these rows only."""
-        return distributed.local_plane_rows(
-            self.s_slots, distributed.world_size(), distributed.rank())
+        every per-image tensor holds these rows of ``planes`` only."""
+        return self.mesh.block(self.s_slots)[1]
 
     def _local(self, a):
-        """A global host (2, S, ...) layout array -> this rank's rows."""
-        return a[:, self.rows]
+        """A global host (2, S, ...) layout array -> this rank's block."""
+        return a[self.planes, self.rows]
 
     @property
     def _draws(self):
-        """``draws`` cut to this rank's rows (every rank draws the global
+        """``draws`` cut to this rank's block (every rank draws the global
         batch)."""
-        return RowDraws(self.draws, self.rows)
+        return RowDraws(self.draws, self.rows, self.planes)
 
     # ------------------------------------------------------------------ data
 
@@ -307,7 +332,7 @@ class Optimiser:
 
     def _set_layout(self, n_imgs, ctf_params, group_ids, halves):
         """The global half-plane layout of ``n_imgs`` images, and this
-        rank's CTF parameters and fresh per-image state."""
+        rank's block's CTF parameters and fresh per-image state."""
         self.n_imgs = n_imgs
         if halves is None:
             perm = np.random.default_rng(self.para.seed).permutation(
@@ -323,8 +348,8 @@ class Optimiser:
         for h in (0, 1):
             self.plane_index[h, :len(idx_h[h])] = idx_h[h]
             self.plane_valid[h, :len(idx_h[h])] = 1.0
-        if distributed.world_size() > s:
-            raise ValueError(f"{distributed.world_size()} ranks for {s} "
+        if self.mesh.n_data > s:
+            raise ValueError(f"{self.mesh.n_data} data ranks for {s} "
                              "slots a half: run at most one rank a slot")
         gid = (np.zeros(self.n_imgs, np.int32) if group_ids is None
                else np.asarray(group_ids, np.int32))
@@ -332,24 +357,23 @@ class Optimiser:
         self.n_groups = int(gid.max()) + 1
         self.groups_plane = gid[self.plane_index]
         loc = self._local(self.plane_index)
-        s_loc = loc.shape[1]
         self.ctf_params = {k: self._t(np.asarray(v, np.float32)[loc])
                            for k, v in ctf_params.items()}
         if "phase_shift" not in self.ctf_params:
             self.ctf_params["phase_shift"] = torch.zeros(
-                (2, s_loc), dtype=real_dtype, device=self.device)
-        self.offsets = torch.zeros((2, s_loc, 2), dtype=real_dtype,
+                loc.shape, dtype=real_dtype, device=self.device)
+        self.offsets = torch.zeros(loc.shape + (2,), dtype=real_dtype,
                                    device=self.device)
         self.scale = np.ones(self.n_groups, np.float32)
-        self.par = particle.make_state((2, s_loc), self.para.m_l_r,
+        self.par = particle.make_state(loc.shape, self.para.m_l_r,
                                        self.para.m_l_t, self.para.m_l_d,
                                        device=self.device)
-        self.scores = torch.ones((2, s_loc), dtype=real_dtype,
+        self.scores = torch.ones(loc.shape, dtype=real_dtype,
                                  device=self.device)
 
     def _set_images(self, imgs_plane):
-        """This rank's (2, s_loc, n, n) images -> the preprocessed unmasked
-        and masked spectra."""
+        """This rank's (lh, s_loc, n, n) images -> the preprocessed
+        unmasked and masked spectra."""
         imgs_norm, alpha = self._preprocess(self._t(imgs_plane))
         self.imgs_ft_ori = fft_ops.fft2_center(imgs_norm)
         self.imgs_ft = (fft_ops.fft2_center(imgs_norm * alpha)
@@ -358,8 +382,9 @@ class Optimiser:
     def set_data_from_dataset(self, ds):
         """Data from a ``data.ParticleDataset``: the dataset's seeded
         halves, 0-based groups and CTF columns as in ``set_data``, and the
-        images of this rank's slots read from their stacks (each rank reads
-        its own; an empty slot holds zeros, as in the JAX package); the
+        images of this rank's block read from their stacks (each rank reads
+        its own: on (2, W/2) only its hemisphere's; an empty slot holds
+        zeros, as in the JAX package); the
         particle and micrograph paths and the micrograph coordinates carried
         into the .thu output."""
         self._set_layout(ds.n, ds.ctf_params(), ds.group_ids, ds.halves)
@@ -421,10 +446,11 @@ class Optimiser:
         self.par = par
 
     def _from_plane(self, plane_arr):
-        """This rank's (2, s_loc, ...) rows -> (N, ...) NumPy of every image
-        in image order: a collective, which every rank must reach."""
-        a = distributed.gather_plane(torch.as_tensor(plane_arr),
-                                     self.s_slots).detach().cpu().numpy()
+        """This rank's (lh, s_loc, ...) block -> (N, ...) NumPy of every
+        image in image order: a collective, which every rank must reach."""
+        a = distributed.gather_plane(
+            torch.as_tensor(plane_arr),
+            self.mesh.blocks(self.s_slots)).detach().cpu().numpy()
         a = a.reshape((-1,) + a.shape[2:])
         sel = self.plane_valid.ravel() > 0
         out = np.zeros((self.n_imgs,) + a.shape[1:], a.dtype)
@@ -540,29 +566,31 @@ class Optimiser:
         return max(1, min(b, self.rows.stop - self.rows.start))
 
     def _bricks(self, r_band=None):
-        """(2, K, ...) Hermitian half-space brick tables, cached per
-        (refs identity, band bucketed to multiples of 8 shells)."""
+        """(lh, K, ...) Hermitian half-space brick tables of this rank's
+        halves, cached per (refs identity, band bucketed to multiples of 8
+        shells)."""
         r_band = self.ladder.r if r_band is None else r_band
         r_band = min(-(-int(r_band) // 8) * 8, self.n // 2 - 1)
         c = getattr(self, "_brick_cache", None)
         if c is not None and c[0] is self.refs and c[1] == r_band:
             return c[2]
         dt = torch.bfloat16 if self.para.table_bf16 else torch.float32
+        refs = self.refs[self.planes]
         if self.dims == 2:
             tabs = projector.build_brick_projectee_2d(
-                self.refs, r_band, pf=self.para.pf, dtype=dt)
+                refs, r_band, pf=self.para.pf, dtype=dt)
             self._brick_cache = (self.refs, r_band, tabs)
             return tabs
         tabs = torch.stack([torch.stack([
             projector.build_brick_projectee_3d(
-                self.refs[h, k], r_band, pf=self.para.pf, dtype=dt, half=True)
-            for k in range(self.para.k)]) for h in range(2)])
+                ref[k], r_band, pf=self.para.pf, dtype=dt, half=True)
+            for k in range(self.para.k)]) for ref in refs])
         self._brick_cache = (self.refs, r_band, tabs)
         return tabs
 
     def _plane_ring_data(self, ring, ori=False, refined_defocus=False):
         """Observed pixels, CTF and sigma reciprocal on the ring,
-        (2, S, P) each. ``ori`` reads the unmasked stack; the masked one,
+        (lh, S, P) each. ``ori`` reads the unmasked stack; the masked one,
         dropped before the final round, is rebuilt when asked for."""
         if not ori and self.imgs_ft is None:
             self._rebuild_masked_stack()
@@ -770,7 +798,7 @@ class Optimiser:
         """Optimiser::normCorrection (src/Optimiser.cpp:6201-6394): per-
         image residual power over [rL, rNorm) on the masked stack at the
         rank-1 pose; both stacks are rescaled by sqrt(median / norm_l).
-        Returns the (2, S) factors (1 on invalid slots) for
+        Returns the (lh, S) factors (1 on invalid slots) for
         engine.sigma_rescaled. The median is over every rank's valid
         slots."""
         _, _, _, _, norms, _, _ = stats or self._residual_stats()
@@ -785,7 +813,8 @@ class Optimiser:
         # for an even count as in NumPy (torch.nanmedian takes the lower)
         m = torch.nanquantile(torch.where(
             self._t(self.plane_valid) > 0,
-            distributed.gather_plane(norm, self.s_slots), float("nan")), 0.5)
+            distributed.gather_plane(norm, self.mesh.blocks(self.s_slots)),
+            float("nan")), 0.5)
         fac = torch.sqrt(m / torch.clamp(norm, min=1e-30))
         fac = torch.where(valid, fac, torch.ones_like(fac))
         self.imgs_ft = self.imgs_ft * fac[..., None, None]
@@ -804,7 +833,7 @@ class Optimiser:
         image's rank-1 translation into its offset, shift the filter's
         translation support by it, and rebuild the masked stack from the
         never-moved original stack."""
-        tran = self.par["topT"]                              # (2, S, 2)
+        tran = self.par["topT"]                             # (lh, S, 2)
         self.offsets = self.offsets - tran
         self.par["t"] = self.par["t"] - tran[:, :, None, :]
         self.par["topT"] = torch.zeros_like(tran)
@@ -979,11 +1008,17 @@ class Optimiser:
         class's joined map from the two halves' summed accumulators with
         this round's FSC (saveMapJoin, :8832) into ``joined_maps``.
 
-        Across ranks the folded F/T and re-centring sums of each half are
-        summed after the insert (the JAX package's psum over the data
-        axis), the rest runs on every rank, and rank 0's references and FSC
-        replace the others' (float atomics can part ranks in the last bit,
-        and these steer the run)."""
+        Each rank inserts, symmetrises and reconstructs its own halves
+        (``mesh``). The folded F/T and re-centring sums are summed over the
+        hemisphere's data ranks after the insert (the JAX package's psum
+        over the data axis). On (2, W/2) the two half maps and offsets are
+        then gathered over the pair of ranks at this data index (each map
+        held to its owner's digest, ``_gather_pair``) and the final
+        round's F/T summed over it (the JAX package replicates
+        them), so that the FSC and the averaging see both halves on every
+        rank; rank 0's references and FSC then replace the others' (float
+        atomics can part ranks in the last bit, and these steer the
+        run)."""
         para = self.para
         dims, k_cls = self.dims, para.k
         r_u = self.ladder.r_u if r_u is None else r_u
@@ -1024,7 +1059,7 @@ class Optimiser:
                 pf=para.pf, n=self.n, mc=mc, chunk=self._chunk(),
                 k_classes=k_classes, mode=para.mode, insert_kernel=kernel,
                 blob_a=para.a, alpha=para.alpha)
-            return self._sum_over_ranks(out)
+            return self._sum_over_data(out)
 
         width = 12 if dims == 2 else 24
         self.insert_fused = (k_cls > 1 and k_cls * mc ** dims * width * 4
@@ -1036,6 +1071,13 @@ class Optimiser:
         fftc = self._ffts()[0]
         self._w_warm, offs, fscs, new_refs, self.half_maps = {}, [], [], [], []
         joined = []
+        pair = self.mesh.pair_group()
+        if pair is None:  # every rank holds both halves
+            both = lambda x: x
+            pair_sum = lambda *xs: xs
+        else:
+            both = lambda x: distributed.all_gather_cat(x, pair)
+            pair_sum = lambda *xs: self._checked_sum(xs, pair)
         for k in range(k_cls):
             if self.insert_fused:
                 f_ht, t_ht, offs_k = f_all[:, k], t_all[:, k], offs_all[:, k]
@@ -1048,23 +1090,25 @@ class Optimiser:
                 f_ht, t_ht = engine.symmetrize_halves(
                     f_ht, t_ht, exact_ops, gen_rots, pf=para.pf,
                     r_u=(mc // 2 - 2) / para.pf)
-            offs.append(offs_k.cpu().numpy())                # (2, 4)
+            offs.append(both(offs_k).cpu().numpy())          # (2, 4)
             _mark("insert")
             fsc_k = (torch.ones(self.n // 2, device=self.device)
                      if prev_fsc is None else self._t(prev_fsc[k]))
             wc = warm_w.get(k)
             warm = wc is not None and wc.shape == t_ht.shape
-            vols2, self._w_warm[k] = engine.reconstruct_halves(
+            vols, self._w_warm[k] = engine.reconstruct_halves(
                 f_ht, t_ht, fsc_k, wc if warm else torch.zeros_like(t_ht),
                 float(r_u), pf=para.pf, n=self.n, warm=warm, blob_a=para.a,
                 blob_alpha=para.alpha, dims=dims, insert_kernel=kernel)
+            vols2 = vols if pair is None else self._gather_pair(vols, pair)
             ft_a, ft_b = fftc(vols2[0]), fftc(vols2[1])
             fsc_new = self._golden_fsc(ft_a, ft_b)
             fscs.append(fsc_new.cpu().numpy())
             self.half_maps.append([vols2[0], vols2[1]])
             if final:
                 joined.append(reconstructor.reconstruct_cropped(
-                    f_ht.sum(0), t_ht.sum(0), fsc_new, self.n, pf=para.pf,
+                    *pair_sum(f_ht.sum(0), t_ht.sum(0)),
+                    fsc_new, self.n, pf=para.pf,
                     max_radius=r_u, join_half=True, blob_a=para.a,
                     blob_alpha=para.alpha, dims=dims, insert_kernel=kernel))
             _mark("wiener_fsc")
@@ -1082,33 +1126,59 @@ class Optimiser:
             "fsc", torch.as_tensor(np.stack(fscs))).numpy()  # (K, shells)
         self.refs = self._from_rank0("refs", torch.stack(new_refs, dim=1))
 
-    def _sum_over_ranks(self, tables):
-        """The insert's folded (F, T, offsets) summed over the ranks. The
-        summed T's total is held to the sum of the ranks' own totals,
-        gathered as numbers apart from the tables: a rank whose tables
-        dropped out of the sum reads as a gap of its share, and raises. Each
-        entry of T is rounded at most once per rank it adds, so the gap of
-        a right sum stays under world x 2^-22 of the total of |T|."""
-        world = distributed.world_size()
-        if world == 1:
+    def _sum_over_data(self, tables):
+        """The insert's folded (F, T, offsets) of this rank's halves summed
+        over the hemisphere's data ranks (``mesh.data_group``: the world
+        on one half; ``_checked_sum``)."""
+        return self._checked_sum(tables, self.mesh.data_group())
+
+    def _checked_sum(self, tables, group):
+        """Tables (F, T, ...) summed over ``group``. The summed T's total
+        is held to the sum of the group's own totals, gathered as numbers
+        apart from the tables: a rank whose tables dropped out of the sum
+        reads as a gap of its share, and raises. Each entry of T is
+        rounded at most once per rank it adds, so the gap of a right sum
+        stays under (group size) x 2^-22 of the total of |T|."""
+        size = len(group.ranks)
+        if size == 1:
             return tables
         own = float(tables[1].double().sum())
-        tables = tuple(map(distributed.all_reduce_sum, tables))
-        want = sum(distributed.all_gather_object(own))
+        tables = tuple(distributed.all_reduce_sum(x, group) for x in tables)
+        want = sum(distributed.all_gather_object(own, group))
         got = float(tables[1].double().sum())
         gap = abs(got - want) / max(float(tables[1].abs().double().sum()),
                                     1e-30)
-        if gap > world * 2.0 ** -22:
+        if gap > size * 2.0 ** -22:
             raise RuntimeError(
                 f"the summed insert table's weight total {got!r} is not the "
-                f"sum of the {world} ranks' own totals {want!r}")
+                f"sum of the {size} ranks' own totals {want!r}")
         self._rank_gaps["T"] = max(self._rank_gaps.get("T", 0.0), gap)
         return tables
+
+    def _gather_pair(self, vols, pair):
+        """Both half maps (2, ...) from this rank's own (1, ...) and the
+        other half's rank at this data index (``pair``). Each rank's
+        checksum of its map (``_digest``), taken before the gather, is gathered apart
+        from the maps, and each gathered half must carry its owner's
+        digest: a gather that hands back the wrong rank's half raises.
+        The maps checked are counted for the round's record."""
+        own = _digest(vols[0])
+        want = distributed.all_gather_object(own, pair)
+        vols2 = distributed.all_gather_cat(vols, pair)
+        got = [_digest(v) for v in vols2]
+        if got != want:
+            raise RuntimeError(f"the half maps gathered over ranks "
+                               f"{pair.ranks} carry the digests {got}, not "
+                               f"their owners' {want}")
+        self._rank_gaps["pair"] = self._rank_gaps.get("pair", 0) + len(got)
+        return vols2
 
     def _from_rank0(self, name, x):
         """Rank 0's ``x`` on every rank, so that what steers the run agrees
         bit for bit; this rank's largest gap to it, over rank 0's largest
-        magnitude, is kept for the round's line in the log."""
+        magnitude, is kept for the round's line in the log. The maps reach
+        it from the pair gather, so each half is held to the map of the
+        rank that holds the same hemisphere's data at data index 0."""
         if distributed.world_size() == 1:
             return x
         x0 = distributed.broadcast(x)
@@ -1266,8 +1336,9 @@ class Optimiser:
         collective). The line in the log also gives each rank's largest
         gap to rank 0 in the references and FSC before rank 0's broadcast
         (``_from_rank0``) and in the summed insert table's total
-        (``_sum_over_ranks``); they are returned for the round's record
-        (None for one rank)."""
+        (``_checked_sum``), and the number of half maps it gathered from
+        its pair and held to their owners' digests (``_gather_pair``);
+        they are returned for the round's record (None for one rank)."""
         world = distributed.world_size()
         if world == 1:
             return None
@@ -1285,8 +1356,10 @@ class Optimiser:
                                f"differ (digests {digests})")
         gaps = {k: [g.get(k, 0.0) for _, g in got]
                 for k in ("refs", "fsc", "T")}
+        gaps["pair"] = [g.get("pair", 0) for _, g in got]
         self.log.info("round %d: the %d ranks agree (state digest %s); "
-                      "largest relative gap of each rank: %s",
+                      "largest relative gap of each rank (and the half "
+                      "maps it checked against their owners'): %s",
                       self.iteration, world, digests[0][:16],
                       json.dumps(gaps))
         return gaps
@@ -1371,11 +1444,10 @@ class Optimiser:
 
     def _rank_images(self, index):
         """Rank ``index``'s images in ascending global index, and their
-        (half, slot) positions within that rank's rows."""
-        rows = distributed.local_plane_rows(self.s_slots,
-                                            distributed.world_size(), index)
-        pi = self.plane_index[:, rows]
-        h, sl = np.nonzero(self.plane_valid[:, rows] > 0)
+        (local half, slot) positions within that rank's block."""
+        planes, rows = self.mesh.block(self.s_slots, index)
+        pi = self.plane_index[planes, rows]
+        h, sl = np.nonzero(self.plane_valid[planes, rows] > 0)
         order = np.argsort(pi[h, sl], kind="stable")
         return pi[h, sl][order], (h[order], sl[order])
 
@@ -1385,7 +1457,8 @@ class Optimiser:
         then every symmetry element g, image by image, imgOri - CTF *
         proj(class reference at g^T R), translated by -(tran - offset) -
         (g^T R)^T c, c the region centre, so that the region lands at the
-        box centre. Each rank writes its own images, in ascending global
+        box centre. Each rank writes its own block's images (on the
+        (2, W/2) layout, of its own hemisphere), in ascending global
         index j = 0 .. n_rank - 1, g-major: slice gi n_rank + j + 1 (one
         rank: slice gi N + l + 1 holds image l). Rank 0 writes
         Meta_Subtract.thu: one row per (image, g), image-major, pointing
@@ -1408,13 +1481,14 @@ class Optimiser:
             colf, rowf, n, para.pixel_size, cp["voltage"], cp["defocus_u"],
             cp["defocus_v"], cp["defocus_theta"], cp["cs"],
             cp["amp_contrast"], cp["phase_shift"],
-            defocus_factor=self.par["topD"]).reshape(2, -1, n, n)
-        t_rel = self.par["topT"] - self.offsets                # (2, S, 2)
+            defocus_factor=self.par["topD"]).reshape(
+                self.par["topD"].shape + (n, n))
+        t_rel = self.par["topT"] - self.offsets               # (lh, S, 2)
         cls = self.par["c"]
-        rot_b = quat.rotate3d(self.par["topR"])                # (2, S, 3, 3)
+        rot_b = quat.rotate3d(self.par["topR"])            # (lh, S, 3, 3)
         rc = self._t(self.region_centre.astype(np.float32))
         h_loc, s_loc = (torch.as_tensor(x, device=dev)
-                        for x in self._rank_images(distributed.rank())[1])
+                        for x in self._rank_images(self.mesh.rank)[1])
         stacks, q_rows = [], []
         for r_g in sym_rots:
             rot_c = torch.einsum("ij,hsjk->hsik", self._t(r_g.T), rot_b)
@@ -1435,7 +1509,7 @@ class Optimiser:
             stacks.append(fft_ops.ifft2_center(diff).real.float()[
                 h_loc, s_loc].cpu().numpy())
             del pri, diff
-        write_mrc(f"{prefix}Subtract_Rank_{distributed.rank():06d}.mrcs",
+        write_mrc(f"{prefix}Subtract_Rank_{self.mesh.rank:06d}.mrcs",
                   np.concatenate(stacks, axis=0), voxel_size=para.pixel_size)
 
         # the particle translations move into the subtracted frame
@@ -1452,7 +1526,7 @@ class Optimiser:
         # image -> (its rank, its place j in that rank's file)
         owner = np.zeros((n_imgs, 2), np.int64)
         count = []
-        for r in range(distributed.world_size()):
+        for r in range(self.mesh.world):
             ids = self._rank_images(r)[0]
             owner[ids] = np.stack([np.full(ids.size, r),
                                    np.arange(ids.size)], axis=1)

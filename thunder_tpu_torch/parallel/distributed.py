@@ -3,10 +3,12 @@
 src/Parallel.cpp:17-67, and per-rank particle ranges,
 src/Database.cpp:621-645).
 
-Every rank runs the same program on its own slots of the half-plane
-layout (``local_plane_rows``) and on its own device. The collectives below
-are the ones the optimiser needs; without a process group (one process)
-each returns its input, so the single-process path calls them too.
+Every rank runs the same program on its own block of the half-plane
+layout (``mesh.Mesh.block``: one hemisphere's plane and a slice of its
+slots on the (half, data) layout of an even rank count, both planes'
+slices on the data-only layout) and on its own device. The collectives below are
+the ones the optimiser needs; without a process group (one process) each
+returns its input, so the single-process path calls them too.
 
 - ``maybe_initialize`` joins the group from explicit arguments, from
   torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
@@ -17,11 +19,17 @@ each returns its input, so the single-process path calls them too.
   otherwise: on the CPU, or with more ranks than GPUs (NCCL refuses two
   ranks on one device). Under gloo the collectives stage CUDA tensors
   through host memory; the compute stays on the card.
-- ``all_reduce_sum`` / ``all_reduce_max``, ``broadcast``, ``gather_plane``
-  (the global (2, S, ...) plane on every rank, the counterpart of
-  ``host_np``) and the object collectives.
+- ``all_reduce_sum``, ``broadcast``, ``all_gather_cat`` and
+  ``all_gather_object`` run over the world or over a ``Group`` of the
+  layout (``group``, made by ``mesh.layout_groups``: a hemisphere's data
+  ranks, or the two ranks of the halves at one data index); a rank that is not in the group it
+  names raises. ``all_reduce_max`` and ``broadcast_object`` run over the
+  world.
+- ``gather_plane``: the global (2, S, ...) plane on every rank from the
+  ranks' blocks (``mesh.Mesh.blocks``), the counterpart of ``host_np``.
 """
 
+import dataclasses
 import datetime
 import os
 
@@ -100,6 +108,7 @@ def maybe_initialize(coordinator=None, num_processes=None, process_id=None,
 
 def shutdown():
     """Leave the process group, if this process joined one."""
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -128,13 +137,55 @@ def split_sizes(s, world):
     return [len(a) for a in np.array_split(np.arange(s), world)]
 
 
-def local_plane_rows(s, world, index):
-    """Rank ``index``'s slot range of the (2, S, ...) half-plane layout of
-    a ``world``-rank run, as a slice of the S axis (both halves' rows: the
-    data axis is split, the half axis is not)."""
-    sizes = split_sizes(s, world)
+def local_plane_rows(s, n_data, index):
+    """Data index ``index``'s slot range of a plane of ``s`` slots split
+    over ``n_data`` data ranks, as a slice of the S axis."""
+    sizes = split_sizes(s, n_data)
     lo = sum(sizes[:index])
     return slice(lo, lo + sizes[index])
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """Ranks that run a collective among themselves: ``pg`` is their
+    torch process group, None for the whole world (or a single rank, whose
+    collectives return their input)."""
+
+    ranks: tuple
+    pg: object = None
+
+
+# ranks -> Group, each made once: every rank of the world must call
+# ``dist.new_group`` for the same groups in the same order
+_GROUPS = {}
+
+
+def group(ranks):
+    """The ``Group`` of ``ranks`` (a tuple of world ranks), made on its
+    first call. A group of one rank or of the whole world needs no torch
+    group of its own; any other is ``dist.new_group``'s, which every rank
+    must ask for, in the same order (``mesh.layout_groups`` does)."""
+    ranks = tuple(ranks)
+    if ranks not in _GROUPS:
+        pg = (dist.new_group(list(ranks))
+              if 1 < len(ranks) < world_size() else None)
+        _GROUPS[ranks] = Group(ranks, pg)
+    return _GROUPS[ranks]
+
+
+def _group_size(group):
+    """The number of ranks ``group`` (None: the world) runs a collective
+    over; raises when this rank is not one of them."""
+    if group is None:
+        return world_size()
+    if rank() not in group.ranks:
+        raise RuntimeError(f"rank {rank()} called a collective of the "
+                           f"group of ranks {group.ranks}")
+    return len(group.ranks)
+
+
+def _pg(group):
+    return None if group is None else group.pg
 
 
 def _comm_device():
@@ -158,11 +209,13 @@ def _collective(x, op):
     return torch.view_as_complex(out) if x.is_complex() else out
 
 
-def all_reduce_sum(x):
-    """The sum of tensor ``x`` over the ranks, on every rank."""
-    if world_size() == 1:
+def all_reduce_sum(x, group=None):
+    """The sum of tensor ``x`` over the ranks of ``group`` (default the
+    world), on each of them."""
+    if _group_size(group) == 1:
         return x
-    return _collective(x, lambda b: dist.all_reduce(b, dist.ReduceOp.SUM))
+    return _collective(x, lambda b: dist.all_reduce(
+        b, dist.ReduceOp.SUM, group=_pg(group)))
 
 
 def all_reduce_max(x):
@@ -172,26 +225,52 @@ def all_reduce_max(x):
     return _collective(x, lambda b: dist.all_reduce(b, dist.ReduceOp.MAX))
 
 
-def broadcast(x, src=0):
-    """Rank ``src``'s tensor ``x`` on every rank."""
-    if world_size() == 1:
+def broadcast(x, src=0, group=None):
+    """Rank ``src``'s tensor ``x`` (``src`` a rank of the world, in
+    ``group``) on every rank of ``group``."""
+    if _group_size(group) == 1:
         return x
-    return _collective(x, lambda b: dist.broadcast(b, src))
+    if group is not None and src not in group.ranks:
+        raise RuntimeError(f"broadcast from rank {src} over the group of "
+                           f"ranks {group.ranks}")
+    return _collective(x, lambda b: dist.broadcast(b, src,
+                                                   group=_pg(group)))
 
 
-def gather_plane(x, s):
-    """This rank's rows (2, s_loc, ...) of a plane of ``s`` slots -> the
-    global (2, s, ...) tensor on every rank, on ``x``'s device."""
+def all_gather_cat(x, group=None):
+    """Every rank's ``x`` (one shape on all) of ``group``, concatenated
+    along dim 0 in rank order, on each of them."""
+    size = _group_size(group)
+    if size == 1:
+        return x
+    xr = _real(x).to(_comm_device()).contiguous()
+    parts = [torch.empty_like(xr) for _ in range(size)]
+    dist.all_gather(parts, xr, group=_pg(group))
+    out = torch.cat(parts).to(x.device)
+    return torch.view_as_complex(out) if x.is_complex() else out
+
+
+def gather_plane(x, blocks):
+    """This rank's block of the (2, S, ...) half-plane layout -> the whole
+    plane on every rank, on ``x``'s device. ``blocks`` holds every rank's
+    (planes, slots) block in rank order (``mesh.Mesh.blocks``); S is where
+    the last slots end."""
     world = world_size()
+    if len(blocks) != world:
+        raise RuntimeError(f"{len(blocks)} ranks' blocks in a world of "
+                           f"{world}")
     if world == 1:
         return x
-    sizes = split_sizes(s, world)
+    s = max(rows.stop for _, rows in blocks)
+    width = max(rows.stop - rows.start for _, rows in blocks)
     xr = _real(x).to(_comm_device())
-    pad = xr.new_zeros((xr.shape[0], max(sizes)) + xr.shape[2:])
+    pad = xr.new_zeros((xr.shape[0], width) + xr.shape[2:])
     pad[:, :xr.shape[1]] = xr
     parts = [torch.empty_like(pad) for _ in range(world)]
     dist.all_gather(parts, pad)
-    out = torch.cat([p[:, :m] for p, m in zip(parts, sizes)], dim=1)
+    out = pad.new_zeros((2, s) + xr.shape[2:])
+    for p, (planes, rows) in zip(parts, blocks):
+        out[planes, rows] = p[:, :rows.stop - rows.start]
     out = out.to(x.device)
     return torch.view_as_complex(out) if x.is_complex() else out
 
@@ -205,10 +284,12 @@ def broadcast_object(obj, src=0):
     return box[0]
 
 
-def all_gather_object(obj):
-    """Every rank's picklable ``obj``, in rank order, on every rank."""
-    if world_size() == 1:
+def all_gather_object(obj, group=None):
+    """Every rank's picklable ``obj`` of ``group`` (default the world), in
+    rank order, on each of them."""
+    size = _group_size(group)
+    if size == 1:
         return [obj]
-    out = [None] * world_size()
-    dist.all_gather_object(out, obj)
+    out = [None] * size
+    dist.all_gather_object(out, obj, group=_pg(group))
     return out

@@ -2,21 +2,25 @@
 engine``).
 
 The JAX engine runs each stage as a ``shard_map`` over a (half, data)
-mesh. Here the half axis is a leading dimension of size 2 of every
-per-image tensor — (2, S, ...), plane 0 = hemisphere A, plane 1 = B — on
-one device, and the data-axis ``psum`` of a multi-process run is the
-optimiser's all-reduce of what these functions return (each rank passes
-its own slots). Brick tables arrive as one (2, K, hz,
-mc, mc, C) stack of Hermitian half-space tables (3D) or (2, K, mc, mc, C)
-bilinear tables (2D classification); an image's class and half select its
-table inside one fused row gather.
+mesh and loops over its device's ``lh = 2 // mesh.shape["half"]`` local
+halves. Here the half axis is the leading dimension of every per-image
+tensor — (lh, S, ...), S this rank's slots — on one device: lh = 2 (plane
+0 = hemisphere A, plane 1 = B) when a rank holds both halves, lh = 1 when
+it holds one hemisphere (``parallel.mesh``). Each function loops over the
+tensors' own half axis, and the data-axis ``psum`` of a multi-process run
+is the optimiser's all-reduce of what these functions return. Brick
+tables arrive as one (lh, K, hz, mc, mc, C) stack of Hermitian half-space
+tables (3D) or (lh, K, mc, mc, C) bilinear tables (2D classification),
+the same halves as the images; an image's class and half select its table
+inside one fused row gather.
 
 Random draws are tensors passed in by the caller (the optimiser draws them
 from a ``torch.Generator``; the parity tests replay ``jax.random``):
 
-- ``scan_init``: Gumbel noise (2, S, K) and two resample uniforms (2, S),
+- ``scan_init``: Gumbel noise (lh, S, K) and two resample uniforms
+  (lh, S),
 - ``local_search``: a callable ``phase -> dict`` of per-phase draws,
-- ``insert_fold_reduce``: support indices ri/ti (2, S, n_draw).
+- ``insert_fold_reduce``: support indices ri/ti (lh, S, n_draw).
 
 With K > 1 classes the insert is class-fused: every sample's row is offset
 by ``cls * n_vox`` into one (K n_vox + 1)-row accumulator (the last row
@@ -52,10 +56,10 @@ GATHER_BUDGET = 1 << 25
 
 
 def _flat_tables(bricks):
-    """(2, K, hz, mc, mc, C) half-space tables -> (flat (2 K n_vox, C),
+    """(lh, K, hz, mc, mc, C) half-space tables -> (flat (lh K n_vox, C),
     mc, n_vox), n_vox = hz mc mc the rows of one table: hz = mc // 2 + 1
     for the odd crop, mc // 2 where the band's crop is clipped to the even
-    padded box (a band near Nyquist). 2D tables (2, K, mc, mc, C) have
+    padded box (a band near Nyquist). 2D tables (lh, K, mc, mc, C) have
     n_vox = mc mc."""
     mc = bricks.shape[-2]
     if bricks.ndim == 5:
@@ -99,8 +103,9 @@ def _slice_coords(rots, col, row, pf):
 
 
 def _table_index(cls, k_classes):
-    """(2, S) classes -> (2, S) table index h * K + c."""
-    h = torch.arange(2, device=cls.device)[:, None]
+    """(lh, S) classes -> (lh, S) table index h * K + c, h the local
+    half."""
+    h = torch.arange(cls.shape[0], device=cls.device)[:, None]
     return h * k_classes + cls.long()
 
 
@@ -113,17 +118,17 @@ def scan_init(bricks, rots, quats, tra, trans, col, row, pmask, dat, ctf,
     references, then the particle-filter seeding (src/Optimiser.cpp:
     633-1136).
 
-    bricks: (2, K, ...) tables; rots (R, 3, 3), or (R, 2, 2) in-plane
+    bricks: (lh, K, ...) tables; rots (R, 3, 3), or (R, 2, 2) in-plane
     rotations in 2D mode; quats (R, 4); tra (T, P);
-    trans (T, 2); dat/ctf/sig_rcp (2, S, P); gumbel (2, S, K); u0_r/u0_t
-    (2, S). The scan runs through kernel K1 (``likelihood.scan_fused``).
-    Returns (state (2, S, ...), wC (2, S, K))."""
+    trans (T, 2); dat/ctf/sig_rcp (lh, S, P); gumbel (lh, S, K); u0_r/u0_t
+    (lh, S). The scan runs through kernel K1 (``likelihood.scan_fused``),
+    one half at a time. Returns (state (lh, S, ...), wC (lh, S, K))."""
     k_cls = bricks.shape[1]
     s = dat.shape[1]
     project = (projector.project_brick_2d if mode == "2d"
                else projector.project_brick_3d)
     halves, wcs = [], []
-    for h in range(2):
+    for h in range(dat.shape[0]):
         proj = torch.stack([project(bricks[h, k], rots, col, row, pf=pf)
                             for k in range(k_cls)])  # (K, R, P)
         parts, wc_parts = [], []
@@ -139,8 +144,7 @@ def scan_init(bricks, rots, quats, tra, trans, col, row, pmask, dat, ctf,
         halves.append({key: torch.cat([p[key] for p in parts])
                        for key in parts[0]})
         wcs.append(torch.cat(wc_parts))
-    st = {key: torch.stack([halves[0][key], halves[1][key]])
-          for key in halves[0]}
+    st = {key: torch.stack([hv[key] for hv in halves]) for key in halves[0]}
     return st, torch.stack(wcs)
 
 
@@ -203,27 +207,27 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
                  min_phase, max_phase=particle.MAX_N_PHASE_PER_ITER,
                  mode="3d", cp=None, factor_d=0.0, pixel_size=None):
     """Phase B: the particle-filter phase loop with the reference's
-    termination rule (src/Optimiser.cpp:1138-1660), all images of both
-    halves batched; finished images drop out of later phases (their state
+    termination rule (src/Optimiser.cpp:1138-1660), all images of the
+    rank's halves batched; finished images drop out of later phases (their state
     is frozen, as in the JAX while_loop). In a multi-process run the loop
     ends when no rank has an active image, and every rank takes each
     phase's draws, so that the ranks stay in step with one another and
     with a single-process run.
 
-    state: particle dict (2, S, ...); phase_draws(phase) -> dict with
-    normals_r (2, S, nR, 4), normals_t (2, S, nT, 2), u0_r, u0_t (2, S),
-    anchor (2, S); in 2D mode the von Mises uniforms u_z, u_2 (2, S,
-    ROUNDS, nR), u_s, theta (2, S, nR) replace normals_r and anchor.
-    ``cp`` (2, S, 7) packed CTF parameters (``pack_ctf``) make the round a
-    CTF search: the defocus support d (2, S, nD) is perturbed by
-    ``factor_d`` sD with the draws' normals_d (2, S, nD), the CTF is
+    state: particle dict (lh, S, ...); phase_draws(phase) -> dict with
+    normals_r (lh, S, nR, 4), normals_t (lh, S, nT, 2), u0_r, u0_t
+    (lh, S), anchor (lh, S); in 2D mode the von Mises uniforms u_z, u_2
+    (lh, S, ROUNDS, nR), u_s, theta (lh, S, nR) replace normals_r and
+    anchor. ``cp`` (lh, S, 7) packed CTF parameters (``pack_ctf``) make
+    the round a CTF search: the defocus support d (lh, S, nD) is perturbed
+    by ``factor_d`` sD with the draws' normals_d (lh, S, nD), the CTF is
     evaluated per defocus point at ``pixel_size``, and d is resampled
-    with u0_d (2, S).
-    Returns (state, phases run per image (2, S))."""
+    with u0_d (lh, S).
+    Returns (state, phases run per image (lh, S))."""
     flat, mc, n_vox = _flat_tables(bricks)
     k_cls = bricks.shape[1]
-    two, s = dat.shape[:2]
-    nb = two * s
+    lh, s = dat.shape[:2]
+    nb = lh * s
     fl = lambda x: x.reshape((nb,) + x.shape[2:])
     st = {k: fl(v).clone() for k, v in state.items()}
     table = fl(_table_index(state["c"], k_cls))
@@ -264,7 +268,7 @@ def local_search(bricks, col, row, pmask, dat, ctf, sig_rcp, state,
             done = new_done
         phase += 1
     nph = torch.where(done, nph, torch.full_like(nph, min(phase, max_phase)))
-    unfl = lambda x: x.reshape((two, s) + x.shape[1:])
+    unfl = lambda x: x.reshape((lh, s) + x.shape[1:])
     return {k: unfl(v) for k, v in st.items()}, unfl(nph)
 
 
@@ -275,8 +279,9 @@ def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
                        mode="3d", insert_kernel="trilinear", blob_a=1.9,
                        alpha=15.0):
     """M-step gridding insert (Optimiser::reconstructRef draws mReco
-    support points per image, src/Optimiser.cpp:6711+): for each half,
-    every image's ``n_draw`` support draws ri/ti (2, S, n_draw) are inserted
+    support points per image, src/Optimiser.cpp:6711+): for each local
+    half, every image's ``n_draw`` support draws ri/ti (lh, S, n_draw) are
+    inserted
     into its class's block of one class-fused accumulator, which is then
     folded to voxels (pixels in 2D) class by class with the deferred
     Hermitian mirror. 3D trilinear inserts go through kernel K2 into a
@@ -287,18 +292,18 @@ def insert_fold_reduce(col, row, pmask, dat_ori, ctf, state, ri, ti, w_img,
     ``brick.fold_insert3``. Symmetrisation is applied afterwards
     (``symmetrize_halves``). 2D adds width-12 rows with ``index_add_``.
 
-    dat_ori (2, S, P) UNMASKED pixels; ctf (2, S, P); state r/t/c;
-    w_img (2, S) insertion weights (0 on invalid slots); tra_off (2, S, 2)
-    re-centring offsets. Returns (F (2, mc^d..) complex64, T (2, mc^d..),
-    offsets (2, K, 4) = [sum dir, count] per class); F and T carry a class
-    axis (2, K, mc^d..) when ``k_classes`` > 1."""
+    dat_ori (lh, S, P) UNMASKED pixels; ctf (lh, S, P); state r/t/c;
+    w_img (lh, S) insertion weights (0 on invalid slots); tra_off
+    (lh, S, 2) re-centring offsets. Returns (F (lh, mc^d..) complex64,
+    T (lh, mc^d..), offsets (lh, K, 4) = [sum dir, count] per class); F
+    and T carry a class axis (lh, K, mc^d..) when ``k_classes`` > 1."""
     dev = dat_ori.device
     dims = 2 if mode == "2d" else 3
     mkb = insert_kernel == "mkb" and dims == 3
     n_vox = mc ** dims
     s = dat_ori.shape[1]
     fs, ts, offs = [], [], []
-    for h in range(2):
+    for h in range(dat_ori.shape[0]):
         if dims == 2 or mkb:
             tab = torch.zeros((k_classes * n_vox + 1, 12 if dims == 2 else 24),
                               dtype=torch.float32, device=dev)
@@ -488,7 +493,7 @@ def _insert_chunk_2d(tab, col, row, pmask, d, c, w, r_sup, t_sup, ri, ti,
 
 
 def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
-    """Point-group symmetrisation of per-half folded (F, T)
+    """Point-group symmetrisation of per-half folded (F, T) (lh, ...)
     (Reconstructor::symmetrizeF/T, src/Reconstructor.cpp:2676-2692):
     grid-exact rotations (``exact_ops``) as transposes and flips, the
     general ones (``general_rots`` (G, 3, 3)) by trilinear gathers from
@@ -496,7 +501,7 @@ def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
     from ..core import reconstructor
 
     fs, ts = [], []
-    for h in range(2):
+    for h in range(f.shape[0]):
         f_c, t_c = reconstructor.symmetrize_exact(f[h], t[h], exact_ops, r_u,
                                                   pf=pf)
         if len(general_rots):
@@ -512,12 +517,12 @@ def symmetrize_halves(f, t, exact_ops, general_rots, *, pf, r_u):
 def reconstruct_halves(f, t, fsc, w0, r_u, *, pf, n, join_half=False,
                        warm=False, blob_a=1.9, blob_alpha=15.0, dims=3,
                        insert_kernel="trilinear"):
-    """Per-half Wiener/C-balance reconstruction. f/t/w0: (2, mc^d..);
-    returns (maps (2, n^d..), converged weights (2, mc^d..))."""
+    """Per-half Wiener/C-balance reconstruction. f/t/w0: (lh, mc^d..);
+    returns (maps (lh, n^d..), converged weights (lh, mc^d..))."""
     from ..core import reconstructor
 
     vols, ws = [], []
-    for h in range(2):
+    for h in range(f.shape[0]):
         v, w = reconstructor.reconstruct_cropped(
             f[h], t[h], fsc, n, pf=pf, max_radius=r_u, join_half=join_half,
             blob_a=blob_a, blob_alpha=blob_alpha,
@@ -537,14 +542,14 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
     src/Optimiser.cpp:6397, refreshScale :5749, normCorrection :6201).
 
     Returns sig (G, n_shell) / cnt (G,) group sums of |datOri - ctf pri|^2,
-    xa/aa (G, n_shell) scale-fit terms, norm (2, S, n_shell) per-image
-    masked-stack residual shells, ori (2, S, n_shell, 3) per-image
+    xa/aa (G, n_shell) scale-fit terms, norm (lh, S, n_shell) per-image
+    masked-stack residual shells, ori (lh, S, n_shell, 3) per-image
     [|datOri|^2, Re(datOri conj(ctf pri)), |ctf pri|^2] shells."""
     flat, mc, n_vox = _flat_tables(bricks)
     k_cls = bricks.shape[1]
     mode = "2d" if bricks.ndim == 5 else "3d"
-    two, s, p = dat.shape
-    nb = two * s
+    lh, s, p = dat.shape
+    nb = lh * s
     fl = lambda x: x.reshape((nb,) + x.shape[2:])
     table = fl(_table_index(state["c"], k_cls))
     coords = _slice_coords(_rot_mats(fl(state["topR"]), mode)[:, None], col,
@@ -580,7 +585,7 @@ def residual_stats(bricks, col, row, sig_idx, pmask, dat, dat_ori, ctf,
         return z.index_add_(0, g, x)
 
     ori = torch.stack([to_shell(dd_l), sh_xa, sh_aa], -1)
-    unfl = lambda x: x.reshape((two, s) + x.shape[1:])
+    unfl = lambda x: x.reshape((lh, s) + x.shape[1:])
     return (grp(sh_o), grp(v), grp(sh_xa), grp(sh_aa), unfl(sh_m),
             unfl(ori))
 
@@ -594,7 +599,7 @@ def sigma_rescaled(ori, fac, groups, valid, *, n_groups):
     the data (high-SNR shells) the three terms cancel, so they are combined
     and summed in float64.
 
-    ori: (2, S, n_shell, 3); fac/groups/valid: (2, S). Returns float64
+    ori: (lh, S, n_shell, 3); fac/groups/valid: (lh, S). Returns float64
     ((G, n_shell), (G,))."""
     f = fac.double()[..., None]
     o = ori.double()
